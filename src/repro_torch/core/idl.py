@@ -1,0 +1,130 @@
+"""IDentity-with-Locality (IDL) locations on the 32-bit lane path.
+
+Port of :mod:`repro.core.idl` (``IDLConfig``, ``idl_locations_rolling32``,
+``rh_locations_rolling32``). ψ_j(x) = j·m' + ρ₁_j(MinHash_j(x)) + ρ₂_j(x):
+a rolling densified one-permutation MinHash (or η exact MinHashes) picks
+the anchor, a hash of the kmer itself picks the offset inside the L-window.
+
+Codes may carry leading batch axes: ``(..., n)`` uint8 codes give
+``(..., η, n - k + 1)`` int64 locations (values < m < 2**31).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import hashing, kmers, minhash
+
+# seed salts (keep ρ₁, ρ₂ and MinHash streams independent)
+_SALT_ANCHOR = 0xA17C
+_SALT_LOCAL = 0x10CA
+_SALT_MH = 0x0D0F
+_SALT_RH = 0x5EED
+_M32 = hashing.M32
+
+
+@dataclasses.dataclass(frozen=True)
+class IDLConfig:
+    """Parameters of a gene-search IDL family (paper §5.1).
+
+    Field for field the reference's ``IDLConfig``: snapshot manifests
+    serialise it, so both packages read each other's snapshots.
+    """
+
+    k: int = 31          # kmer size (paper standard)
+    t: int = 16          # sub-kmer size (paper recommends 16 for k=31)
+    L: int = 1 << 15     # locality window
+    eta: int = 4         # hash repetitions in the BF
+    m: int = 1 << 26     # total BF bits (bit-sliced: matrix rows)
+    minhash_mode: str = "doph"  # "doph" (paper §5.3.3) or "exact"
+    # quantize the ρ₁ anchor to multiples of L so the locality window is
+    # exactly one block; align=False is the paper-faithful layout
+    align: bool = True
+
+    def __post_init__(self):
+        if not 1 <= self.t <= self.k <= 31:
+            raise ValueError(f"need 1 <= t <= k <= 31, got t={self.t} k={self.k}")
+        if self.m // self.eta <= self.L:
+            raise ValueError(
+                f"partition size m/η = {self.m // self.eta} must exceed L={self.L}"
+            )
+
+    @property
+    def w(self) -> int:  # sub-kmers per kmer
+        return self.k - self.t + 1
+
+    @property
+    def m_part(self) -> int:
+        """Per-repetition sub-range; block-aligned mode rounds down to L."""
+        part = self.m // self.eta
+        if self.align:
+            part = (part // self.L) * self.L
+        return part
+
+    @property
+    def anchor_range(self) -> int:
+        return self.m_part - self.L
+
+    def exact_seeds(self) -> list[int]:
+        return [_SALT_MH + 7919 * j for j in range(self.eta)]
+
+
+def _doph32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
+    """(..., η, n_kmers) densified one-permutation rolling MinHash."""
+    h = hashing.mix32((hashing.mul32(subk, 0x9E3779B9) + _SALT_MH) & _M32)
+    bins = ((h >> 16) * cfg.eta) >> 16
+    empty = minhash.FILL32
+    mh = torch.stack([
+        minhash.sliding_window_min(torch.where(bins == j, h, empty), cfg.w)
+        for j in range(cfg.eta)
+    ], dim=-2)
+    # rotation densification: an empty bin borrows from the next non-empty
+    # bin, offset by a multiple of the golden constant
+    for off in range(1, cfg.eta):
+        donor = torch.roll(mh, -off, dims=-2)
+        mh = torch.where(
+            (mh == empty) & (donor != empty),
+            (donor + ((0x9E3779B9 * off) & _M32)) & _M32,
+            mh,
+        )
+    return mh
+
+
+def _exact32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
+    """(..., η, n_kmers) η independent rolling MinHashes."""
+    return torch.stack([
+        minhash.sliding_window_min(
+            hashing.mix32((hashing.mul32(subk, 2 * s + 1) + s) & _M32), cfg.w)
+        for s in cfg.exact_seeds()
+    ], dim=-2)
+
+
+def idl_locations_rolling32(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
+    """(..., η, n_kmers) IDL locations using only 32-bit lane arithmetic."""
+    if cfg.t > 16:
+        raise ValueError("32-bit path needs t <= 16")
+    subk = kmers.pack_kmers_u32(codes, cfg.t)
+    mh = _doph32(cfg, subk) if cfg.minhash_mode == "doph" else _exact32(cfg, subk)
+    hi, lo = kmers.pack_kmers_pair32(codes, cfg.k)
+    locs = []
+    for j in range(cfg.eta):
+        mixed = hashing.mix32(hashing.mul32(mh[..., j, :], 2 * j + 3))
+        if cfg.align:
+            anchor = hashing.hash32_to_range(mixed, cfg.m_part // cfg.L) * cfg.L
+        else:
+            anchor = hashing.hash32_to_range(mixed, cfg.anchor_range)
+        local = hashing.hash_pair32_to_range(hi, lo, _SALT_LOCAL + 31 * j, cfg.L)
+        locs.append((anchor + local + j * cfg.m_part) & _M32)
+    return torch.stack(locs, dim=-2)
+
+
+def rh_locations_rolling32(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
+    """Baseline random-hash locations on the 32-bit lane path."""
+    hi, lo = kmers.pack_kmers_pair32(codes, cfg.k)
+    return torch.stack([
+        (hashing.hash_pair32_to_range(hi, lo, _SALT_RH + 31 * j, cfg.m_part)
+         + j * cfg.m_part) & _M32
+        for j in range(cfg.eta)
+    ], dim=-2)

@@ -1,0 +1,271 @@
+"""The shared ingest layer: one planned insert path.
+
+Port of :mod:`repro.index.ingest` (plans of every ``kind``, the plain and
+the planned backend, and the streaming archive builder). Every insert is a
+scatter-OR of single bits into a packed ``(n_rows, W)`` int32 bit-matrix,
+described by ``(row, word_col, bit)`` targets. Backends:
+
+* ``"torch"``      — the plain sort-dedup scatter (the port of ``"jnp"``);
+* ``"idl_insert"`` — the host-side sorted run planner + the CUDA
+  ``insert_planned`` kernel, one launch per batch (on a CPU matrix, the
+  kernel's plain version).
+
+Both update the matrix **in place** (the reference donates instead);
+``donate=False`` scatters into a clone and leaves the input untouched.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import idl as idl_mod
+from repro_torch.index import packed, query
+from repro_torch.kernels.idl_insert import ops as ins_ops
+
+BACKENDS = ("torch", "idl_insert")
+KINDS = ("bits", "rows", "cols")
+
+
+@dataclasses.dataclass(frozen=True)
+class InsertPlan:
+    """Static insert recipe for one (cfg, scheme, read_shape, matrix) tuple.
+
+    ``kind`` names how a read's hash locations become (row, word, bit)
+    targets: ``"bits"`` — locations are flat bit offsets of a packed word
+    column (flat BF); ``"rows"`` — each read lands in aux filter rows and
+    locations pick (word, bit) within the row (RAMBO); ``"cols"`` — each
+    read owns an aux file column and locations pick the matrix row
+    (bit-sliced layouts).
+    """
+
+    cfg: idl_mod.IDLConfig
+    scheme: str
+    read_shape: tuple[int, int]       # (B, read_len)
+    matrix_shape: tuple[int, int]     # (n_rows, W)
+    kind: str
+    lane32: bool
+    rows_per_block: int               # run-coalescing tile height
+    inserts_per_run: int
+
+    @property
+    def row_words(self) -> int:
+        return self.matrix_shape[1]
+
+    @property
+    def block_bits(self) -> int:
+        """Bits per tile in the flattened (rows*W*32) bit space."""
+        return self.rows_per_block * self.row_words * 32
+
+    # -- target stream (shared by every backend) ----------------------------
+    def locations(self, reads: torch.Tensor) -> torch.Tensor:
+        """(B, η, n_kmers) int64 hash locations (the query layer's body)."""
+        return packed.batch_locations(self.cfg, reads, self.scheme,
+                                      lane32=self.lane32)
+
+    def targets(self, reads: torch.Tensor, aux: Optional[torch.Tensor] = None):
+        """Flat int64 (row, word_col, bit) target streams.
+
+        ``aux``: None (``"bits"``), (B, R) filter rows (``"rows"``), or
+        (B,) file columns (``"cols"``).
+        """
+        locs = self.locations(reads)                    # (B, η, n_k)
+        if self.kind == "bits":
+            row, wc, bit = locs >> 5, torch.zeros_like(locs), locs & 31
+        elif self.kind == "cols":
+            if aux is None:
+                raise ValueError("kind='cols' plans need (B,) file columns")
+            cols = aux.reshape(-1).to(torch.int64)[:, None, None]
+            row = locs
+            wc = (cols >> 5).expand_as(row)
+            bit = (cols & 31).expand_as(row)
+        elif self.kind == "rows":
+            if aux is None:
+                raise ValueError("kind='rows' plans need (B, R) filter rows")
+            frows = aux.to(torch.int64)                 # (B, R)
+            shape = frows.shape + locs.shape[1:]        # (B, R, η, n_k)
+            row = frows[:, :, None, None].expand(shape)
+            wc = (locs >> 5)[:, None].expand(shape)
+            bit = (locs & 31)[:, None].expand(shape)
+        else:
+            raise ValueError(f"unknown insert kind {self.kind!r}")
+        return row.reshape(-1), wc.reshape(-1), bit.reshape(-1)
+
+    def plan_runs(self, reads: torch.Tensor, aux: Optional[torch.Tensor] = None):
+        """Host-side sorted/deduplicated run plan (one kernel launch)."""
+        t0 = time.perf_counter()
+        row, wc, bit = self.targets(reads, aux)
+        flat = ((row * self.row_words + wc) * 32 + bit).cpu().numpy()
+        t0 = query.record_stage("insert", "locations", t0)
+        rplan = ins_ops.plan_insert_runs(
+            flat, block_bits=self.block_bits,
+            inserts_per_run=self.inserts_per_run,
+        )
+        query.record_stage("insert", "host_plan", t0)
+        return rplan
+
+    def run_dma_bytes(self, rplan) -> int:
+        """Tile bytes the plan covers (read + write per touched block)."""
+        return 0 if rplan is None else rplan.dma_bytes
+
+    # -- execution ----------------------------------------------------------
+    def execute(
+        self,
+        matrix: torch.Tensor,
+        reads,
+        aux=None,
+        *,
+        backend: str = "torch",
+        donate: bool = True,
+    ) -> torch.Tensor:
+        """Scatter-OR the batch into ``matrix`` in place; returns it.
+
+        ``matrix`` may be 1-D when ``W == 1``. ``donate=False`` scatters
+        into a clone instead (one extra device copy) and returns the clone.
+        """
+        if not donate:
+            matrix = matrix.clone()
+        reads = query.as_reads(reads, matrix.device)
+        if aux is not None:
+            aux = torch.as_tensor(aux, device=matrix.device)
+        mat = matrix.view(self.matrix_shape)
+        if backend == "torch":
+            packed.scatter_or_matrix(mat, *self.targets(reads, aux))
+        elif backend == "idl_insert":
+            rplan = self.plan_runs(reads, aux)
+            if rplan is not None:
+                query.record_locality(
+                    scheme=self.scheme, op="insert",
+                    tile_bytes=self.run_dma_bytes(rplan),
+                    n_runs=rplan.n_runs, n_probes=int(rplan.n_locs),
+                    run_lengths=rplan.run_lengths)
+            t0 = time.perf_counter()
+            ins_ops.insert_planned(mat, rplan)
+            query.record_stage("insert", "upload_and_launch", t0)
+        else:
+            raise ValueError(
+                f"unknown ingest backend {backend!r} (want one of {BACKENDS})")
+        return matrix
+
+
+PLAN_CACHE_SIZE = 512
+
+
+@functools.lru_cache(maxsize=PLAN_CACHE_SIZE)
+def plan_insert(
+    cfg: idl_mod.IDLConfig,
+    scheme: str,
+    read_shape: tuple[int, int],
+    matrix_shape: tuple[int, int],
+    *,
+    kind: str,
+    lane32: bool = True,
+    rows_per_block: Optional[int] = None,
+    inserts_per_run: Optional[int] = None,
+    device="cuda",
+) -> InsertPlan:
+    """Build (or fetch) the cached plan for one insert geometry.
+
+    Defaults are the reference's: ``rows_per_block`` is ``L/32`` words for
+    ``"bits"`` and otherwise ``L`` rows clamped to ``2**21 / (W·128)``, as a
+    power of two that divides ``n_rows``; ``inserts_per_run`` is 128 on an
+    accelerator and 32 on a CPU, read from the type of ``device``.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown insert kind {kind!r} (want one of {KINDS})")
+    n_rows, row_words = matrix_shape
+    if inserts_per_run is None:
+        inserts_per_run = 32 if torch.device(device).type == "cpu" else 128
+    if rows_per_block is None:
+        if kind == "bits":
+            target = max(cfg.L // 32, 1)
+        else:
+            target = max(1, min(cfg.L, (1 << 21) // max(row_words * 128, 1)))
+        rows_per_block = query._pow2_block(n_rows, target)
+    if n_rows % rows_per_block:
+        raise ValueError(
+            f"rows_per_block={rows_per_block} must divide n_rows={n_rows}")
+    return InsertPlan(
+        cfg=cfg, scheme=scheme,
+        read_shape=tuple(read_shape), matrix_shape=tuple(matrix_shape),
+        kind=kind, lane32=lane32,
+        rows_per_block=rows_per_block, inserts_per_run=inserts_per_run,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Streaming archive builder.
+# ---------------------------------------------------------------------------
+
+def _file_sequences(item, default_id: int):
+    """Normalize an archive item to (file_id, [code arrays])."""
+    from repro_torch.data import genome as genome_mod
+
+    if isinstance(item, genome_mod.GenomeFile):
+        return item.file_id, [np.asarray(item.genome)]
+    if isinstance(item, str):
+        return default_id, [
+            np.asarray(codes)
+            for codes in genome_mod.read_fasta(item).values()
+        ]
+    fid, codes = item
+    return int(fid), [np.asarray(codes)]
+
+
+def build_archive(
+    index,
+    files: Iterable,
+    *,
+    read_len: int = 230,
+    chunk_reads: int = 64,
+    backend: str = "idl_insert",
+    pad_final: bool = True,
+    **kw,
+):
+    """Stream a whole archive into an engine; returns the updated engine.
+
+    ``files``: an iterable of ``data.genome.GenomeFile``, ``(file_id,
+    codes)`` pairs, or FASTA paths. Every sequence is chopped into
+    fixed-``read_len`` windows overlapping by ``k - 1`` bases (every kmer
+    covered; duplicates are free since scatter-OR is idempotent), batched
+    ``chunk_reads`` at a time into the engine's ``insert_batch``. With
+    ``pad_final`` a partial tail chunk repeats a read to fill the batch.
+    """
+    from repro_torch.data import genome as genome_mod
+
+    k = int(index.cfg.k)
+    pending: dict[int, tuple[list, list]] = {}
+
+    def flush(length: int, force: bool):
+        nonlocal index
+        reads_l, fids_l = pending[length]
+        while len(reads_l) >= chunk_reads or (force and reads_l):
+            take = min(chunk_reads, len(reads_l))
+            batch, fids = reads_l[:take], fids_l[:take]
+            del reads_l[:take], fids_l[:take]
+            if pad_final and take < chunk_reads:
+                batch = batch + [batch[0]] * (chunk_reads - take)
+                fids = fids + [fids[0]] * (chunk_reads - take)
+            index = index.insert_batch(
+                np.stack(batch), np.asarray(fids, dtype=np.int32),
+                backend=backend, **kw)
+
+    for pos, item in enumerate(files):
+        fid, seqs = _file_sequences(item, pos)
+        for codes in seqs:
+            windows = genome_mod.window_reads(codes, read_len, k)
+            if windows.shape[0] == 0:
+                continue
+            length = windows.shape[1]
+            reads_l, fids_l = pending.setdefault(length, ([], []))
+            reads_l.extend(windows)
+            fids_l.extend([fid] * windows.shape[0])
+            flush(length, force=False)
+    for length in sorted(pending):
+        flush(length, force=True)
+    return index

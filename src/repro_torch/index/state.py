@@ -1,0 +1,163 @@
+"""Functional index state: word matrices plus static meta.
+
+Port of :mod:`repro.index.state` for the bit-sliced engine. An
+:class:`IndexState` is a tuple of packed ``(n_rows, W)`` int32 word
+matrices and a hashable :class:`StateMeta`; engines are thin views over it.
+
+Inserts update the word matrix **in place** (torch has no donation); the
+consumed-value guard stays: an insert marks its input value consumed, and
+touching it again raises :class:`StaleIndexError`. ``donate=False`` clones
+the matrix first and leaves the input live.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import idl as idl_mod
+
+
+class StaleIndexError(RuntimeError):
+    """A consumed index value was used again."""
+
+
+_STALE_MSG = (
+    "this {what} was consumed by an insert: the update was applied to its "
+    "storage in place and handed to the returned value, so only the "
+    "*returned* index may be used (linear-use style). Keep the result of "
+    "insert()/insert_batch(), or pass donate=False to keep the input alive "
+    "at the cost of one copy."
+)
+
+
+def mark_consumed(obj) -> None:
+    """Flag a (frozen) index value as consumed. Idempotent."""
+    object.__setattr__(obj, "_consumed", True)
+
+
+def ensure_live(obj, what: str = "index value") -> None:
+    """Raise :class:`StaleIndexError` if ``obj`` was consumed by an insert."""
+    if getattr(obj, "_consumed", False):
+        raise StaleIndexError(_STALE_MSG.format(what=what))
+
+
+ENGINES = ("bloom", "cobs", "rambo", "bitsliced")
+
+
+@dataclasses.dataclass(frozen=True)
+class StateMeta:
+    """Hashable static half of an :class:`IndexState` (the reference's
+    fields, so snapshot manifests read the same in both packages)."""
+
+    engine: str                                   # one of ENGINES
+    scheme: str
+    cfgs: Tuple[idl_mod.IDLConfig, ...]
+    n_files: Optional[int] = None                 # cobs / rambo / bitsliced
+    k: Optional[int] = None                       # cobs top-level kmer size
+    group_file_ids: Optional[Tuple[Tuple[int, ...], ...]] = None   # cobs
+    n_buckets: Optional[int] = None               # rambo B
+    n_rep: Optional[int] = None                   # rambo R
+
+    def __post_init__(self):
+        if self.engine not in ENGINES:
+            raise ValueError(
+                f"unknown engine kind {self.engine!r} (want one of {ENGINES})"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexState:
+    """Index storage: int32 word matrices plus meta."""
+
+    words: Tuple[torch.Tensor, ...]
+    meta: StateMeta
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(w.numel()) * 4 for w in self.words)
+
+    @property
+    def device(self) -> torch.device:
+        return self.words[0].device
+
+
+def kmer_size(meta: StateMeta) -> int:
+    """The kmer size every read/query against this state is cut into."""
+    return int(meta.k if meta.k is not None else meta.cfgs[0].k)
+
+
+def from_numpy(meta_json: dict, words: Sequence[np.ndarray],
+               device="cuda") -> IndexState:
+    """An :class:`IndexState` from a snapshot's manifest meta and its word
+    arrays (uint32 or int32, as the reference writes them), on ``device``.
+
+    This is how a state built by either package — the JAX reference
+    included — is carried into the port.
+    """
+    from repro_torch.index import store
+
+    meta = store.meta_from_json(meta_json)
+    tensors = []
+    for arr in words:
+        if arr.dtype not in (np.uint32, np.int32):
+            raise ValueError(f"word arrays must be uint32/int32, got {arr.dtype}")
+        # one host copy: the source may be a read-only memory map, and the
+        # state must never alias the caller's array
+        host = np.array(arr, copy=True).view(np.int32)
+        tensors.append(torch.from_numpy(host).to(device))
+    return IndexState(words=tuple(tensors), meta=meta)
+
+
+def from_engine(index) -> IndexState:
+    """Extract the :class:`IndexState` behind an engine value."""
+    from repro_torch.index import engines
+
+    if isinstance(index, IndexState):
+        return index
+    if isinstance(index, engines.BitSlicedIndex):
+        ensure_live(index, what="engine")
+        return IndexState(
+            words=(index.words,),
+            meta=StateMeta(engine="bitsliced", scheme=index.scheme,
+                           cfgs=(index.cfg,), n_files=index.n_files),
+        )
+    raise TypeError(f"not a ported engine or IndexState: {type(index)!r}")
+
+
+def to_engine(state: IndexState):
+    """Rebuild the engine view a state was extracted from (loss-free)."""
+    from repro_torch.index import engines
+
+    ensure_live(state, what="IndexState")
+    meta = state.meta
+    if meta.engine == "bitsliced":
+        return engines.BitSlicedIndex(
+            cfg=meta.cfgs[0], scheme=meta.scheme, n_files=meta.n_files,
+            words=state.words[0])
+    raise NotImplementedError(
+        f"engine kind {meta.engine!r} is not ported yet (bitsliced only)")
+
+
+def insert(state: IndexState, reads, file_ids=None, *, donate: bool = True,
+           **kw) -> IndexState:
+    """Insert and return the updated state; consumes ``state`` unless
+    ``donate=False``."""
+    new_eng = to_engine(state).insert_batch(reads, file_ids, donate=donate,
+                                            **kw)
+    if donate:
+        mark_consumed(state)
+    return from_engine(new_eng)
+
+
+def query(state: IndexState, reads, **kw) -> torch.Tensor:
+    """Per-kmer membership query (engine-shaped output)."""
+    return to_engine(state).query_batch(reads, **kw)
+
+
+def msmt(state: IndexState, reads, theta: float = 1.0, **kw) -> torch.Tensor:
+    """Multiple-Set Membership Test at coverage threshold ``theta``."""
+    return to_engine(state).msmt(reads, theta=theta, **kw)

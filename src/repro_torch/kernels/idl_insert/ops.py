@@ -1,0 +1,136 @@
+"""Host-side insert planner + executor of the ``insert_planned`` kernel.
+
+The planner is the reference's ``plan_insert_runs``, verbatim (numpy): the
+batch's flat bit positions are sorted and deduplicated once, then
+run-length-encoded by matrix row-block. :func:`insert_planned` executes a
+plan in place: the kernel ORs each valid offset's bit straight into the
+matrix, so the planner's ``slot_ids``/``uniq_blocks`` tile bookkeeping and
+its pow2 pad runs (which the TPU kernel needs) are kept only for parity and
+byte accounting.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.idl_insert import kernel
+
+
+_PAD_BLOCK = np.int32(np.iinfo(np.int32).max)  # never a real block id
+
+
+@dataclasses.dataclass
+class InsertRunPlan:
+    """One-launch, sorted-run plan over a flattened (rows*W*32)-bit space."""
+
+    block_ids: np.ndarray    # (R_pad,) int32 row-block per run, nondecreasing
+    slot_ids: np.ndarray     # (R_pad,) int32 output tile slot, nondecreasing
+    offsets: np.ndarray      # (R_pad, C) int32 tile bit offsets, -1 padded
+    run_lengths: np.ndarray  # (n_runs,) int32 inserts per true run
+                             # (precomputed at plan time so telemetry never
+                             # re-reduces the (R_pad, C) offset matrix)
+    uniq_blocks: np.ndarray  # (S_pad,) int32 touched blocks, sorted unique,
+                             # padded with _PAD_BLOCK (dropped at write-back)
+    n_locs: int              # deduplicated insert count
+    n_runs: int              # true run count (before pow2 padding)
+    n_tiles: int             # true touched-block count (before pow2 padding)
+    block_bits: int          # bits per tile (rows_per_block * W * 32)
+    inserts_per_run: int
+
+    @property
+    def n_slots(self) -> int:
+        """Pow2-padded output tile count (the executor's static shape)."""
+        return int(self.uniq_blocks.shape[0])
+
+    @property
+    def dma_bytes(self) -> int:
+        # one tile read + one tile write per touched block, for the batch
+        return 2 * self.n_tiles * (self.block_bits // 8)
+
+
+def plan_insert_runs(
+    flat_bits: np.ndarray, block_bits: int, inserts_per_run: int = 128
+) -> InsertRunPlan | None:
+    """Sort + dedup flat bit positions, run-length encode by block.
+
+    ``flat_bits``: any-shape int array of global bit positions within the
+    flattened matrix (``(row * W + word) * 32 + bit``); int64 on the host,
+    so arbitrarily large matrices are fine. Negative positions are dropped
+    (masked inserts). Returns None when nothing survives.
+
+    Both data-dependent sizes are padded to powers of two so the
+    executor's compile cache stays small: the run count (pad runs are
+    all-pad lanes of the last block/slot — bit-exact no-ops) and the
+    output tile count (pad slots carry the ``_PAD_BLOCK`` sentinel and
+    are dropped by the write-back scatter).
+    """
+    flat = np.asarray(flat_bits, dtype=np.int64).reshape(-1)
+    flat = np.unique(flat[flat >= 0])        # sorted + deduplicated
+    n = int(flat.shape[0])
+    if n == 0:
+        return None
+    c = inserts_per_run
+    blocks = flat // block_bits
+    idx = np.arange(n, dtype=np.int64)
+    start = np.empty(n, dtype=bool)
+    start[0] = True
+    np.not_equal(blocks[1:], blocks[:-1], out=start[1:])
+    pos_in_block = idx - np.maximum.accumulate(np.where(start, idx, 0))
+    # new run at a block start or every C inserts (split long runs); block
+    # keys are nondecreasing so a cumsum numbers runs and slots directly
+    run = np.cumsum(start | (pos_in_block % c == 0)) - 1
+    slot = np.cumsum(start) - 1
+    n_runs = int(run[-1]) + 1
+    r_pad = 1 << max(n_runs - 1, 1).bit_length()
+    pos = pos_in_block % c
+
+    offs = np.full((r_pad, c), -1, dtype=np.int32)
+    offs[run, pos] = (flat % block_bits).astype(np.int32)
+    uniq = blocks[start].astype(np.int32)
+    bids = np.full(r_pad, uniq[-1], dtype=np.int32)
+    bids[run] = blocks.astype(np.int32)
+    sids = np.full(r_pad, len(uniq) - 1, dtype=np.int32)
+    sids[run] = slot.astype(np.int32)
+    n_tiles = len(uniq)
+    s_pad = 1 << max(n_tiles - 1, 1).bit_length()
+    uniq = np.concatenate(
+        [uniq, np.full(s_pad - n_tiles, _PAD_BLOCK, dtype=np.int32)])
+
+    return InsertRunPlan(
+        block_ids=bids, slot_ids=sids, offsets=offs, uniq_blocks=uniq,
+        run_lengths=np.bincount(run, minlength=n_runs).astype(np.int32),
+        n_locs=n, n_runs=n_runs, n_tiles=n_tiles,
+        block_bits=block_bits, inserts_per_run=c,
+    )
+
+
+def insert_planned(matrix: torch.Tensor, plan: InsertRunPlan | None
+                   ) -> torch.Tensor:
+    """OR a run plan's bits into the packed (n_rows, W) ``matrix`` in place
+    (one kernel launch on a CUDA matrix); returns ``matrix``. ``matrix`` may
+    be 1-D when ``W == 1``."""
+    if plan is None:
+        return matrix
+    w = int(matrix.shape[-1]) if matrix.dim() > 1 else 1
+    if plan.block_bits % (w * 32):
+        raise ValueError(
+            f"block_bits={plan.block_bits} not a row multiple of W={w}")
+    rpb = plan.block_bits // (w * 32)
+    mat = matrix.view(-1, w)
+    if mat.shape[0] % rpb:
+        raise ValueError(
+            f"rows_per_block={rpb} must divide n_rows={mat.shape[0]}")
+    if int(plan.block_ids.max()) >= mat.shape[0] // rpb:
+        raise ValueError("plan names a row block outside the matrix")
+    # only the true runs: the pow2 pad runs are all pad lanes
+    dev, r = matrix.device, plan.n_runs
+    kernel.insert_planned(
+        mat,
+        torch.as_tensor(plan.block_ids[:r], device=dev),
+        torch.as_tensor(plan.offsets[:r], device=dev),
+        rows_per_block=rpb,
+    )
+    return matrix

@@ -1,0 +1,125 @@
+"""Host-side probe planner + executor of the ``gather_planned_rows`` kernel.
+
+The planner is the reference's, verbatim (numpy): it run-length-encodes
+the probe stream by matrix row-block and emits fixed-shape run arrays.
+:func:`gather_planned_rows` executes a plan on the plan's matrix: the
+kernel writes every probe's row straight into probe order, so the TPU
+path's ``(R_pad, C, W)`` intermediate and its pow2 run padding are gone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.idl_probe import kernel
+
+
+@dataclasses.dataclass
+class ProbePlan:
+    block_ids: np.ndarray    # (R,) int32
+    offsets: np.ndarray      # (R, C) int32, -1 padded
+    run_lengths: np.ndarray  # (R,) int32 probes per run (== row-wise count
+                             # of valid offsets, precomputed at plan time
+                             # so telemetry never re-reduces the (R, C)
+                             # offset matrix)
+    probe_index: np.ndarray  # (R, C) int32 position in flattened (η·n) stream
+    gather_index: np.ndarray # (n_probes,) int32 flat (run, lane) per probe —
+                             # the inverse of probe_index, so executors can
+                             # realign with a cheap gather instead of a
+                             # scatter over padded lanes
+    n_probes: int
+    eta: int
+    n_keys: int
+    block_bits: int
+    probes_per_run: int
+
+    @property
+    def n_runs(self) -> int:
+        return int(self.block_ids.shape[0])
+    # NOTE: per-run DMA bytes depend on the probed matrix's row width,
+    # which the plan does not know — see QueryPlan.run_dma_bytes.
+
+
+def plan_probe_runs(
+    locs: np.ndarray, block_bits: int, probes_per_run: int = 128
+) -> ProbePlan:
+    """Run-length-encode (P, n) probe streams into block-resident runs.
+
+    ``locs`` may be bit locations (``block_bits`` = bits per block, the
+    original flat-BF use) or matrix row indices (``block_bits`` = rows per
+    block — the generalized ``probe_rows`` path); the arithmetic is
+    identical. Leading rows (hash repetitions, or batch × η streams) are
+    planned independently and concatenated, so a run never crosses streams.
+    Runs longer than C are split.
+    """
+    locs = np.asarray(locs, dtype=np.int64)
+    if locs.ndim == 1:
+        locs = locs[None, :]
+    p, n = locs.shape
+    c = probes_per_run
+
+    # Vectorized over ALL streams at once (no per-stream Python loop): the
+    # whole (P, n) probe stream is planned in a handful of cumsum passes,
+    # which is what lets a (B·η, n_kmers) batch plan in ~ms on the host.
+    flat = locs.reshape(-1)
+    blocks = flat // block_bits
+    idx = np.arange(p * n, dtype=np.int64)
+    start = np.empty(p * n, dtype=bool)
+    start[0] = True
+    np.not_equal(blocks[1:], blocks[:-1], out=start[1:])
+    start[:: n] = True                       # a run never crosses streams
+    pos_in_run = idx - np.maximum.accumulate(np.where(start, idx, 0))
+    # new segment at a run start or every C probes (split long runs); run
+    # keys are nondecreasing along the stream so a cumsum IS the inverse
+    # np.unique used to compute
+    seg = np.cumsum(start | (pos_in_run % c == 0)) - 1
+    n_runs = int(seg[-1]) + 1
+    pos = pos_in_run % c
+
+    offs = np.full((n_runs, c), -1, dtype=np.int32)
+    pidx = np.full((n_runs, c), -1, dtype=np.int32)
+    offs[seg, pos] = (flat % block_bits).astype(np.int32)
+    pidx[seg, pos] = idx.astype(np.int32)
+    bids = np.zeros(n_runs, dtype=np.int32)
+    bids[seg] = blocks.astype(np.int32)
+
+    return ProbePlan(
+        block_ids=bids,
+        offsets=offs,
+        run_lengths=np.bincount(seg, minlength=n_runs).astype(np.int32),
+        probe_index=pidx,
+        gather_index=(seg * c + pos).astype(np.int32),
+        n_probes=p * n,
+        eta=p,
+        n_keys=n,
+        block_bits=block_bits,
+        probes_per_run=c,
+    )
+
+
+def gather_planned_rows(matrix: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
+    """Execute a row plan; return (n_probes, W) int32 rows in probe order.
+
+    ``plan.block_bits`` is read as rows-per-block. ``matrix`` may be 1-D
+    when ``W == 1``. One kernel launch on a CUDA matrix; the plain version
+    on a CPU one.
+    """
+    w = int(matrix.shape[-1]) if matrix.dim() > 1 else 1
+    matrix = matrix.reshape(-1, w)
+    rpb = plan.block_bits
+    if matrix.shape[0] % rpb:
+        raise ValueError(
+            f"rows_per_block={rpb} must divide n_rows={matrix.shape[0]}")
+    if plan.n_runs and int(plan.block_ids.max()) >= matrix.shape[0] // rpb:
+        raise ValueError("plan names a row block outside the matrix")
+    dev = matrix.device
+    return kernel.gather_planned_rows(
+        matrix,
+        torch.as_tensor(plan.block_ids, device=dev),
+        torch.as_tensor(plan.offsets, device=dev),
+        torch.as_tensor(plan.probe_index, device=dev),
+        rows_per_block=rpb, n_probes=plan.n_probes,
+    )

@@ -1,0 +1,125 @@
+"""CUDA kernels of the PyTorch port against their plain versions, on a card.
+
+Every test here needs a CUDA device and skips without one (the ``cuda``
+marker selects them: ``python -m pytest -m cuda tests/test_torch_*.py``).
+Comparisons are exact: the kernels move and OR integer bits.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import idl  # noqa: E402
+from repro_torch.index import engines  # noqa: E402
+from repro_torch.kernels.idl_insert import kernel as ins_kernel  # noqa: E402
+from repro_torch.kernels.idl_insert import ops as ins_ops  # noqa: E402
+from repro_torch.kernels.idl_insert import ref as ins_ref  # noqa: E402
+from repro_torch.kernels.idl_probe import kernel as probe_kernel  # noqa: E402
+from repro_torch.kernels.idl_probe import ops as probe_ops  # noqa: E402
+from repro_torch.kernels.idl_probe import ref as probe_ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _matrix(rng, n_rows, w, device):
+    m = rng.integers(-2 ** 31, 2 ** 31, size=(n_rows, w), dtype=np.int64)
+    return torch.as_tensor(m.astype(np.int32), device=device)
+
+
+@pytest.mark.parametrize("n_rows,w,rpb,c", [
+    (256, 3, 16, 32), (1 << 12, 1, 64, 128), (512, 8, 8, 64),
+    (1 << 10, 32, 64, 128), (1 << 10, 33, 32, 40),
+])
+def test_gather_planned_rows_kernel_vs_plain(cuda, n_rows, w, rpb, c):
+    rng = np.random.default_rng(n_rows + w)
+    matrix = _matrix(rng, n_rows, w, cuda)
+    rows = rng.integers(0, n_rows, size=(3, 97))
+    rows[1].sort()                       # long runs beside scattered ones
+    rows[2] = np.sort(rng.integers(0, 3 * rpb, size=97))   # runs of ~32
+    plan = probe_ops.plan_probe_runs(rows, block_bits=rpb, probes_per_run=c)
+    assert (plan.offsets < 0).any()      # pad lanes present
+    before = probe_kernel.launches
+    got = probe_ops.gather_planned_rows(matrix, plan)
+    torch.cuda.synchronize()
+    assert probe_kernel.launches == before + 1
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (plan.block_ids, plan.offsets, plan.probe_index)]
+    want = probe_ref.gather_planned_rows_ref(
+        matrix, *args, rows_per_block=rpb, n_probes=plan.n_probes)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(),
+                          matrix.cpu().numpy()[rows.reshape(-1)])
+
+
+@pytest.mark.parametrize("n_rows,w,rpb,c,n_bits", [
+    (256, 3, 16, 32, 900), (1 << 12, 1, 64, 128, 3000),
+    (1 << 10, 32, 64, 128, 20000), (512, 8, 8, 40, 777),
+])
+def test_insert_planned_kernel_vs_plain(cuda, n_rows, w, rpb, c, n_bits):
+    rng = np.random.default_rng(n_bits)
+    matrix = _matrix(rng, n_rows, w, cuda)
+    flat = rng.integers(0, n_rows * w * 32, size=n_bits)
+    flat[:50] = -1                       # masked targets are dropped
+    plan = ins_ops.plan_insert_runs(flat, block_bits=rpb * w * 32,
+                                    inserts_per_run=c)
+    want = ins_ref.insert_planned_ref(
+        matrix.clone(), torch.as_tensor(plan.block_ids, device=cuda),
+        torch.as_tensor(plan.offsets, device=cuda), rows_per_block=rpb)
+    before = ins_kernel.launches
+    got = ins_ops.insert_planned(matrix, plan)
+    torch.cuda.synchronize()
+    assert ins_kernel.launches == before + 1
+    assert got.data_ptr() == matrix.data_ptr()       # in place
+    assert torch.equal(got, want)
+
+
+def test_empty_insert_plan_is_identity(cuda):
+    matrix = torch.arange(64, dtype=torch.int32, device=cuda).reshape(16, 4)
+    before = ins_kernel.launches
+    assert ins_ops.insert_planned(matrix, None) is matrix
+    empty = torch.empty((0, 32), dtype=torch.int32, device=cuda)
+    ins_kernel.insert_planned(matrix, empty[:, 0], empty, rows_per_block=4)
+    torch.cuda.synchronize()
+    assert ins_kernel.launches == before
+    assert torch.equal(matrix.cpu(), torch.arange(64, dtype=torch.int32)
+                       .reshape(16, 4))
+
+
+def test_kernels_reject_bad_operands(cuda):
+    matrix = torch.zeros((64, 2), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    offs = torch.zeros((1, 32), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ins_kernel.insert_planned(matrix, ids, offs, rows_per_block=8)
+    with pytest.raises(ValueError):
+        probe_kernel.gather_planned_rows(
+            matrix, ids.cpu(), offs.to(torch.int32), offs.to(torch.int32),
+            rows_per_block=8, n_probes=1)
+
+
+def test_engine_backends_agree_on_cuda(cuda):
+    cfg = idl.IDLConfig(k=31, t=12, L=1 << 10, eta=2, m=1 << 18)
+    rng = np.random.default_rng(5)
+    planned = engines.BitSlicedIndex.build(cfg, "idl", 64, device=cuda)
+    plain = engines.BitSlicedIndex.build(cfg, "idl", 64, device=cuda)
+    for _ in range(3):
+        reads = rng.integers(0, 4, size=(32, 100), dtype=np.uint8)
+        fids = rng.integers(0, 64, size=32)
+        planned = planned.insert_batch(reads, fids, backend="idl_insert")
+        plain = plain.insert_batch(reads, fids, backend="torch")
+    assert torch.equal(planned.words, plain.words)
+    queries = np.concatenate(
+        [reads[:8], rng.integers(0, 4, size=(8, 100), dtype=np.uint8)])
+    a = planned.query_batch(queries, backend="idl_probe")
+    b = planned.query_batch(queries, backend="torch")
+    assert torch.equal(a, b)
+    assert planned.msmt(queries[:8]).cpu().numpy()[
+        np.arange(8), fids[:8]].all()
