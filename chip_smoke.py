@@ -1,30 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ingest-to-serve path on one CUDA card.
+"""Drive the PyTorch port's two paths on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports ``repro_torch`` from ``src/`` beside this file (never JAX or the
-reference package) and runs three phases, printing one line each:
+reference package) and runs these phases, printing one line each:
 
 1. device and build — the card, its power limit, and an ``nvcc`` build of
    every kernel source (``-Xptxas -v`` registers / shared memory / spills);
-2. kernels vs their plain PyTorch versions on the card, bit for bit, at
-   small widths (W = 1 and 32, pad lanes, ragged run counts, an empty
-   insert plan) and at the main path's shapes (204,800 probes into a
-   2^26 x 32 matrix; one 512-read insert batch), each timed with CUDA
-   events beside its plain version, its byte bound and a library call;
-3. the main path at full width (``full_config``: m = 2^26 rows, 1024 files,
-   k 31, t 16, L 2^17, η 4): an 8 GiB ``BitSlicedIndex`` built through
-   ``build_archive(backend="idl_insert")`` and served through
-   ``GeneSearchService(backend="idl_probe")`` in 256-read batches, with the
-   launch counters zeroed just before and read just after; recall must be
-   total and the first batch must match the plain ``"torch"`` backend;
-   then the mean host time of each planner stage over that run, as the
-   package's own ``planner.stage_ms`` timers recorded it.
+2. kernels vs their plain PyTorch versions on the card, bit for bit:
+   2a-2c the bit-sliced path's ``gather_planned_rows`` and
+   ``insert_planned`` at small widths (W = 1 and 32, pad lanes, ragged run
+   counts, an empty insert plan) and at the main path's shapes (204,800
+   probes into a 2^26 x 32 matrix; one 512-read insert batch); 2d
+   ``window_min`` at small shapes (w in {1, 2, 16, 31}, ragged lengths,
+   int64 lanes with bit 31 set, sign-flipped 64-bit hashes, int32,
+   float32) and at the rolling MinHash's shapes ((256, 215) and (512, 215)
+   int64, w = 16); 2e the flat filter's ``probe_planned_bits`` and
+   ``insert_with_plan`` at the flat filter's shapes (one 256-read probe
+   plan into a 2^27-word filter; a rounds plan with one block in several
+   rounds). Each main-shape kernel is timed with CUDA events beside its
+   plain version, its byte bound and, where one exists, a library call;
+3. the bit-sliced main path at full width (``full_config``: m = 2^26 rows,
+   1024 files, k 31, t 16, L 2^17, η 4): an 8 GiB ``BitSlicedIndex`` built
+   through ``build_archive(backend="idl_insert")`` and served through
+   ``GeneSearchService(backend="idl_probe")`` in 256-read batches; recall
+   must be total and the first batch must match the plain ``"torch"``
+   backend; then the mean host time of each planner stage;
+4. the paper's flat IDL Bloom filter at full width (m = 2^32 bits, a
+   512 MiB filter; L 2^15, η 4, k 31, t 16) over one E. coli-sized genome:
+   ingest through ``build_archive(backend="idl_insert")``, the same
+   genome's locations through ``plan_insert_rounds`` and
+   ``insert_with_plan`` into a second filter (equal word for word), then 8
+   batches of 256 genome reads served through ``msmt`` (all true),
+   ``probe_membership`` (equal to ``query_batch``) and one batch through
+   ``GeneSearchService``, plus poisoned reads counted.
 
-Then it prints the kernels' JSON line, the ``nvidia-smi`` name and power
-limit, and last ``{"ok": true, "device": {...}}``. It exits non-zero,
-printing no result, without a CUDA device, without the port beside it, or
-when any build, launch or check fails.
+Every path phase zeroes the launch counters just before it and reads them
+just after; each kernel the path runs must have launched. Then it prints
+the kernels' JSON line (launches summed over the path phases), the
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``. It exits non-zero, printing no result, without a CUDA device,
+without the port beside it, or when any build, launch or check fails.
 """
 
 from __future__ import annotations
@@ -47,6 +63,8 @@ SERVE_BATCHES = 8
 INSERT_BATCH = 512             # build_archive chunk_reads
 GENOME_LEN = 16_384
 ARCHIVE_SEED = 11
+FLAT_GENOME_LEN = 4_600_000    # one E. coli-sized genome
+FLAT_READ_LEN = 230
 
 
 def nvidia_smi() -> str:
@@ -77,12 +95,44 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest |a - b| over int32 words (0 when equal)."""
-    diff = (a != b).nonzero(as_tuple=True)
+# device ms per kernel call from CUDA-graph replay (no host time between
+# launches), printed beside the JSON line's CUDA-event times
+GRAPH_MS: dict = {}
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn`` call: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times and timed with CUDA events, so the
+    wrapper's host work between launches is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                     # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the elements (0 when equal; NaN equals NaN)."""
+    diff = ((a != b) & ~(torch.isnan(a) & torch.isnan(b))
+            if a.is_floating_point() else a != b).nonzero(as_tuple=True)
     if diff[0].numel() == 0:
         return 0
-    return int((a[diff].long() - b[diff].long()).abs().max())
+    return float((a[diff].double() - b[diff].double()).abs().max())
 
 
 def sector_bytes(first_word, n_words: int) -> int:
@@ -258,6 +308,7 @@ def main_shapes_phase(cfg, archive, dev) -> list:
         "bound_ms": 1e3 * g_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
         "library_ms": cuda_ms(gather_library, 50),
     }
+    GRAPH_MS[probe_kernel.NAME] = graph_ms(gather_kernel)
     print(f"phase 2b gather at serve shapes: ok (max_abs_err {err}, "
           f"tolerance 0) — {rplan.n_probes} probes in "
           f"{rplan.n_runs} runs of <= {rplan.probes_per_run} "
@@ -310,6 +361,7 @@ def main_shapes_phase(cfg, archive, dev) -> list:
         "bound_ms": 1e3 * i_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
         "library_ms": None,
     }
+    GRAPH_MS[ins_kernel.NAME] = graph_ms(insert_kernel)
     del copy
     print(f"phase 2c insert at build shapes: ok (max_abs_err {err}, "
           f"tolerance 0) — {iplan.n_locs} bits in "
@@ -321,14 +373,52 @@ def main_shapes_phase(cfg, archive, dev) -> list:
     return [gather, insert]
 
 
-def main_path_phase(cfg, archive, dev, kernels: list) -> None:
+def _counters():
+    """(name, module, attribute) of every kernel's launch counter."""
+    from repro_torch.kernels.idl_insert import kernel as ins_kernel
+    from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.window_min import kernel as wm_kernel
+
+    return [(probe_kernel.NAME, probe_kernel, "launches"),
+            (ins_kernel.NAME, ins_kernel, "launches"),
+            (wm_kernel.NAME, wm_kernel, "launches"),
+            (probe_kernel.BITS_NAME, probe_kernel, "bits_launches"),
+            (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches")]
+
+
+def reset_launches() -> None:
+    for _, mod, attr in _counters():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr) for name, mod, attr in _counters()}
+
+
+def stage_means(snap, ingest_s: float, batch_ms: list) -> dict:
+    """Mean host ms per batch of each planner stage (the package's
+    ``planner.stage_ms`` timers) and of whole batches."""
+    from repro_torch.obs import metrics as obs_metrics
+
+    stages = {}
+    for key, hist in snap["hists"].get("planner.stage_ms", {}).items():
+        labels = obs_metrics.parse_label_key(key)
+        stages[f"{labels['op']}.{labels['stage']}"] = {
+            "mean_ms": hist["sum"] / hist["count"], "batches": hist["count"]}
+    n_ingest = stages["insert.host_plan"]["batches"]
+    stages["insert.whole_batch"] = {
+        "mean_ms": 1e3 * ingest_s / n_ingest, "batches": n_ingest}
+    stages["query.whole_batch"] = {
+        "mean_ms": sum(batch_ms) / len(batch_ms), "batches": len(batch_ms)}
+    return stages
+
+
+def main_path_phase(cfg, archive, dev) -> dict:
     """Phase 3: ingest the archive and serve batches through the entry
     points a user calls, with the launch counters zeroed just before and
     read just after; then the mean host time of each planner stage over
-    that run (the package's ``planner.stage_ms`` timers)."""
+    that run. Returns the launch counts."""
     from repro_torch.index import BitSlicedIndex, build_archive
-    from repro_torch.kernels.idl_insert import kernel as ins_kernel
-    from repro_torch.kernels.idl_probe import kernel as probe_kernel
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import GeneSearchService, ServiceConfig
 
@@ -336,15 +426,14 @@ def main_path_phase(cfg, archive, dev, kernels: list) -> None:
                                device=dev)
     obs_metrics.reset()
     torch.cuda.reset_peak_memory_stats()
-    probe_kernel.launches = 0
-    ins_kernel.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     eng = build_archive(eng, archive, read_len=cfg.read_len,
                         chunk_reads=INSERT_BATCH, backend="idl_insert")
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
-    ingest_launches = ins_kernel.launches
-    check(ingest_launches > 0, "insert_planned launched during ingest")
+    check(read_launches()["insert_planned"] > 0,
+          "insert_planned launched during ingest")
 
     svc = GeneSearchService(eng, ServiceConfig(
         theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
@@ -366,14 +455,17 @@ def main_path_phase(cfg, archive, dev, kernels: list) -> None:
             extra += len(res.file_ids) - hit
             total += 1
         if r == 0:
+            counts = read_launches()
             plain = plain_svc.search(reads)
+            for name, mod, attr in _counters():
+                # the plain backend's comparison run is not counted
+                setattr(mod, attr, counts[name])
             check(all(np.array_equal(a.matches, b.matches)
                       for a, b in zip(results, plain)),
                   "idl_probe verdicts == torch verdicts on the first batch")
-    kernels[0]["launches"] = probe_kernel.launches
-    kernels[1]["launches"] = ins_kernel.launches
-    check(kernels[0]["launches"] > 0,
-          "gather_planned_rows launched while serving")
+    launches = read_launches()
+    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+        check(launches[name] > 0, f"{name} launched on the bit-sliced path")
     check(correct == total, f"recall {correct}/{total} is total")
     snap = obs_metrics.DEFAULT.snapshot()
     tile_q = obs_metrics.counter_total(
@@ -382,26 +474,317 @@ def main_path_phase(cfg, archive, dev, kernels: list) -> None:
         snap, "locality.planned_tile_bytes", {"op": "insert"})
     print(f"phase 3 main path: ok — {cfg.m}x{cfg.file_words} int32 index "
           f"({eng.state.nbytes} B) over {cfg.n_files} files x {GENOME_LEN} "
-          f"bases; ingest {ingest_s:.3f} s ({ingest_launches} insert_planned "
-          f"launches); serve {SERVE_BATCHES} x {SERVE_BATCH} reads, batch ms "
-          f"{[round(b, 3) for b in batch_ms]} ({kernels[0]['launches']} "
-          f"gather_planned_rows launches); recall {correct}/{total}; mean "
+          f"bases; ingest {ingest_s:.3f} s; serve {SERVE_BATCHES} x "
+          f"{SERVE_BATCH} reads, batch ms {[round(b, 3) for b in batch_ms]}; "
+          f"launches {json.dumps(launches)}; recall {correct}/{total}; mean "
           f"extra matched files {extra / total:.4f}; first batch == torch "
           f"backend; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B; "
           f"locality.planned_tile_bytes query {tile_q:.0f} insert "
           f"{tile_i:.0f}")
-    stages = {}
-    for key, hist in snap["hists"].get("planner.stage_ms", {}).items():
-        labels = obs_metrics.parse_label_key(key)
-        stages[f"{labels['op']}.{labels['stage']}"] = {
-            "mean_ms": hist["sum"] / hist["count"], "batches": hist["count"]}
-    stages["insert.whole_batch"] = {
-        "mean_ms": 1e3 * ingest_s / ingest_launches, "batches": ingest_launches}
-    stages["query.whole_batch"] = {
-        "mean_ms": sum(batch_ms) / len(batch_ms), "batches": len(batch_ms)}
+    stages = stage_means(snap, ingest_s, batch_ms)
     print("phase 3 where the time goes (host ms per batch, means over the "
           "main path's run): " + json.dumps(stages, sort_keys=True))
+    return launches
+
+
+def window_min_phase(dev) -> dict:
+    """Phase 2d: ``window_min`` against its plain version, bit for bit, at
+    small shapes and at the rolling MinHash's shapes, timed there beside
+    its byte bound and ``unfold(-1, w, 1).amin(-1)``. Returns its JSON
+    record (at the serve shape, (256, 215))."""
+    from repro_torch.kernels.window_min import kernel as wm_kernel
+    from repro_torch.kernels.window_min import ref as wm_ref
+
+    rng = np.random.default_rng(1)
+    flip = -(1 << 63)
+    cases = []
+    for w in (1, 2, 16, 31):
+        for n in (w, 200, 255, 1000, 1283):        # < and not a multiple of
+            lanes = rng.integers(0, 1 << 32, size=(3, n))   # the 256 tile
+            lanes[:, ::3] |= 1 << 31                         # bit 31 set
+            h64 = rng.integers(-2 ** 63, 2 ** 63 - 1, size=(3, n),
+                               dtype=np.int64)
+            h64[:, ::4] = -1                                 # UINT64_MAX
+            cases += [lanes, h64 ^ flip,
+                      rng.integers(-2 ** 31, 2 ** 31, size=(2, n)
+                                   ).astype(np.int32),
+                      rng.normal(size=(2, n)).astype(np.float32)]
+            for a in cases[-4:]:
+                a = torch.as_tensor(a, device=dev)
+                got = wm_kernel.window_min(a, w)
+                check(torch.equal(got, wm_ref.window_min_ref(a, w=w)),
+                      f"window_min {a.dtype} {tuple(a.shape)} w={w} == plain")
+    torch.cuda.synchronize()
+    timed = {}
+    for rows in (SERVE_BATCH, INSERT_BATCH):
+        a = torch.as_tensor(rng.integers(0, 1 << 32, size=(rows, 215)),
+                            device=dev)
+        w = 16
+        got = wm_kernel.window_min(a, w)
+        lib = a.unfold(-1, w, 1).amin(-1)
+        err = max_abs_err(got, wm_ref.window_min_ref(a, w=w))
+        check(err == 0 and torch.equal(got, lib),
+              f"window_min at ({rows}, 215) == plain")
+        nbytes = a.numel() * 8 + got.numel() * 8
+        timed[rows] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: wm_kernel.window_min(a, w), 200),
+            "plain_ms": cuda_ms(lambda: wm_ref.window_min_ref(a, w=w), 50),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": cuda_ms(lambda: a.unfold(-1, w, 1).amin(-1), 200),
+            "graph_ms": graph_ms(lambda: wm_kernel.window_min(a, w)),
+        }
+    print(f"phase 2d window_min: ok (kernel == plain, tolerance 0: "
+          f"bit-exact) — {len(cases)} small cases (w 1/2/16/31, int64 "
+          f"lanes with bit 31 set, sign-flipped 64-bit, int32, float32); "
+          f"at (rows, 215) int64, w 16: " + json.dumps(
+              {f"({r}, 215)": t for r, t in timed.items()}))
+    GRAPH_MS[wm_kernel.NAME] = timed[SERVE_BATCH].pop("graph_ms")
+    return {"name": wm_kernel.NAME, "route": "cuda",
+            "source": wm_kernel.SOURCE, "replaces": wm_kernel.REPLACES,
+            **timed[SERVE_BATCH]}
+
+
+def flat_config():
+    """The flat filter's configuration: the reference's default widths
+    (k 31, t 16, L 2^15 bits, η 4, doph, align) at m = 2^32 bits, the
+    largest filter uint32 locations address."""
+    from repro_torch.core import idl
+
+    return idl.IDLConfig(k=31, t=16, L=1 << 15, eta=4, m=1 << 32)
+
+
+def flat_kernels_phase(cfg, g, dev) -> list:
+    """Phase 2e: ``probe_planned_bits`` and ``insert_with_plan`` against
+    their plain versions at the flat filter's shapes, timed beside their
+    byte bounds (charged by the 32-byte sectors the work needs). Returns
+    their JSON records."""
+    from repro_torch.data import genome
+    from repro_torch.index import packed
+    from repro_torch.kernels.idl_insert import kernel as ins_kernel
+    from repro_torch.kernels.idl_insert import ops as ins_ops
+    from repro_torch.kernels.idl_insert import ref as ins_ref
+    from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.idl_probe import ops as probe_ops
+    from repro_torch.kernels.idl_probe import ref as probe_ref
+
+    bw = cfg.L // 32
+    words = torch.empty(cfg.m // 32, dtype=torch.int32,
+                        device=dev).random_(-2 ** 31, 2 ** 31)
+    reads = torch.as_tensor(genome.extract_reads(g, FLAT_READ_LEN,
+                                                 SERVE_BATCH, seed=7),
+                            device=dev)
+    locs = packed.batch_locations(cfg, reads, "idl")      # (B, η, n_k)
+    locs = locs.transpose(0, 1).reshape(cfg.eta, -1).cpu().numpy()
+    plan = probe_ops.plan_probe_runs(locs, cfg.L)
+    bids, offs, pidx = as_dev(dev, plan.block_ids, plan.offsets,
+                              plan.probe_index)
+
+    def probe_kernel_call():
+        return probe_kernel.probe_planned_bits(
+            words, bids, offs, pidx, block_words=bw, n_probes=plan.n_probes)
+
+    def probe_plain():
+        return probe_ref.probe_planned_bits_ref(
+            words, bids, offs, pidx, block_words=bw, n_probes=plan.n_probes)
+
+    got, want = probe_kernel_call(), probe_plain()
+    direct = probe_ref.query_membership_ref(
+        words, torch.as_tensor(locs, device=dev))
+    member = probe_ops.probe_membership(words, plan)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0 and torch.equal(member, direct),
+          "probe_planned_bits == plain at the flat filter's shapes")
+    lanes = valid_lanes(plan.offsets)
+    read_words = (plan.block_ids.astype(np.int64)[:, None] * bw
+                  + (plan.offsets >> 5)).reshape(-1)[lanes]
+    p_bytes = (sector_bytes(np.arange(plan.n_runs), 1)
+               + 2 * sector_bytes(lanes, 1)
+               + sector_bytes(np.unique(read_words), 1)
+               + sector_bytes(np.arange(plan.n_probes), 1))
+    probe = {
+        "name": probe_kernel.BITS_NAME, "route": "cuda",
+        "source": probe_kernel.BITS_SOURCE,
+        "replaces": probe_kernel.BITS_REPLACES, "max_abs_err": err,
+        "ms": cuda_ms(probe_kernel_call, 100),
+        "plain_ms": cuda_ms(probe_plain, 20),
+        "bound_ms": 1e3 * p_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": None,
+    }
+    GRAPH_MS[probe_kernel.BITS_NAME] = graph_ms(probe_kernel_call)
+    print(f"phase 2e probe_planned_bits at serve shapes: ok (max_abs_err "
+          f"{err}, tolerance 0) — {plan.n_probes} probes in {plan.n_runs} "
+          f"runs (mean {plan.n_probes / plan.n_runs:.4f} probes/run, "
+          f"{np.unique(read_words).size} distinct words); kernel "
+          f"{probe['ms']:.6f} ms, plain {probe['plain_ms']:.6f} ms, bound "
+          f"{probe['bound_ms']:.6f} ms ({p_bytes} B; the plan's padded "
+          f"offsets and probe indices hold "
+          f"{plan.offsets.nbytes + plan.probe_index.nbytes} B, not "
+          f"charged); library: no single PyTorch call")
+
+    # a rounds plan: one insert batch's locations plus one block that
+    # appears in several rounds
+    batch = torch.as_tensor(genome.window_reads(g, FLAT_READ_LEN, cfg.k)
+                            [:INSERT_BATCH], device=dev)
+    ilocs = packed.batch_locations(cfg, batch, "idl").cpu().numpy()
+    hot = np.random.default_rng(2).integers(0, cfg.L, size=(1, 500))
+    ilocs = np.concatenate([ilocs.reshape(cfg.eta, -1),
+                            np.repeat(hot + 5 * cfg.L, cfg.eta, 0)], axis=1)
+    iplan = ins_ops.plan_insert_rounds(ilocs, cfg.L)
+    rounds_of_hot = sum(int((b == 5).any()) for b, _ in iplan.rounds)
+    check(rounds_of_hot > 1, "one block appears in several insert rounds")
+    rbids = np.concatenate([b for b, _ in iplan.rounds])
+    roffs = np.concatenate([o for _, o in iplan.rounds])
+    starts = tuple(int(x) for x in np.cumsum(
+        [0] + [b.shape[0] for b, _ in iplan.rounds[:-1]]))
+    ibids, ioffs = as_dev(dev, rbids, roffs)
+    copy = words.clone()
+
+    def rounds_kernel():
+        return ins_kernel.insert_rounds(words, ibids, ioffs, block_words=bw,
+                                        round_starts=starts)
+
+    def rounds_plain():
+        bounds = list(starts) + [len(rbids)]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            tiles = ins_ref.insert_round_ref(
+                copy, ibids[lo:hi], ioffs[lo:hi], block_words=bw,
+                inserts_per_round=iplan.inserts_per_round)
+            ins_ref.apply_insert_to_words(copy, ibids[lo:hi], tiles, bw)
+        return copy
+
+    rounds_kernel()
+    rounds_plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(words, copy)
+    check(err == 0, "insert_with_plan == plain at the flat filter's shapes")
+    valid = roffs >= 0
+    touched = np.unique((rbids.astype(np.int64)[:, None] * bw
+                         + (roffs >> 5))[valid])
+    i_bytes = (sector_bytes(np.arange(len(rbids)), 1)
+               + sector_bytes(valid_lanes(roffs), 1)
+               + 2 * sector_bytes(touched, 1))
+    rounds = {
+        "name": ins_kernel.ROUNDS_NAME, "route": "cuda",
+        "source": ins_kernel.SOURCE, "replaces": ins_kernel.ROUNDS_REPLACES,
+        "max_abs_err": err,
+        "ms": cuda_ms(rounds_kernel, 100),
+        "plain_ms": cuda_ms(rounds_plain, 5),
+        "bound_ms": 1e3 * i_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": None,
+    }
+    GRAPH_MS[ins_kernel.ROUNDS_NAME] = graph_ms(rounds_kernel)
+    print(f"phase 2e insert_with_plan at build shapes: ok (max_abs_err "
+          f"{err}, tolerance 0) — {iplan.n_locs} locations in "
+          f"{len(iplan.rounds)} rounds of {len(rbids)} runs (block 5 in "
+          f"{rounds_of_hot} rounds), {touched.size} words; kernel (shared "
+          f"insert_planned.cu, one launch for all rounds) {rounds['ms']:.6f} "
+          f"ms, plain (round by round) {rounds['plain_ms']:.6f} ms, bound "
+          f"{rounds['bound_ms']:.6f} ms ({i_bytes} B; the padded offsets hold "
+          f"{roffs.nbytes} B, not charged); library: no single PyTorch call")
+    return [probe, rounds]
+
+
+def flat_path_phase(cfg, g, dev) -> dict:
+    """Phase 4: the flat IDL Bloom filter at full width, driven through the
+    entry points a user calls, with the launch counters zeroed just before
+    and read just after. Returns the launch counts."""
+    from repro_torch.core import idl
+    from repro_torch.data import genome
+    from repro_torch.index import PackedBloomIndex, build_archive, packed
+    from repro_torch.kernels.idl_insert import ops as ins_ops
+    from repro_torch.kernels.idl_probe import ops as probe_ops
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving import GeneSearchService, ServiceConfig
+
+    obs_metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng = PackedBloomIndex.build(cfg, "idl", device=dev)
+    t0 = time.perf_counter()
+    eng = build_archive(eng, [(0, g)], read_len=FLAT_READ_LEN,
+                        chunk_reads=INSERT_BATCH, backend="idl_insert")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+
+    # the legacy path: the whole genome's locations, planned in rounds
+    t0 = time.perf_counter()
+    locs = idl.idl_locations_rolling(cfg, torch.as_tensor(g, device=dev))
+    locs = locs.cpu().numpy()
+    t1 = time.perf_counter()
+    plan = ins_ops.plan_insert_rounds(locs, cfg.L)
+    t2 = time.perf_counter()
+    legacy = torch.zeros_like(eng.words)
+    ins_ops.insert_with_plan(legacy, plan)
+    torch.cuda.synchronize()
+    legacy_s = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    check(torch.equal(legacy, eng.words),
+          "insert_with_plan filter == build_archive filter, word for word")
+    del legacy, locs
+
+    reads = genome.extract_reads(g, FLAT_READ_LEN,
+                                 SERVE_BATCHES * SERVE_BATCH, seed=1)
+    batch_ms, n_runs, n_probes = [], 0, 0
+    for r in range(SERVE_BATCHES):
+        batch = reads[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+        t0 = time.perf_counter()
+        verdict = eng.msmt(batch, backend="idl_probe")
+        check(bool(verdict.all()), f"every genuine read of batch {r} matches")
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        per_kmer = eng.query_batch(batch, backend="idl_probe")
+        blocs = packed.batch_locations(cfg, torch.as_tensor(batch,
+                                                            device=dev), "idl")
+        blocs = blocs.transpose(0, 1).reshape(cfg.eta, -1).cpu().numpy()
+        bplan = probe_ops.plan_probe_runs(blocs, cfg.L)
+        n_runs += bplan.n_runs
+        n_probes += bplan.n_probes
+        member = probe_ops.probe_membership(eng.words, bplan)
+        check(torch.equal(member.view(per_kmer.shape), per_kmer),
+              f"probe_membership == query_batch on batch {r}")
+    poisoned = genome.poison_queries(reads[:SERVE_BATCH], seed=2)
+    n_false = int((~eng.msmt(poisoned, backend="idl_probe")).sum())
+    svc = GeneSearchService(eng, ServiceConfig(
+        theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
+    results = svc.search(list(reads[:SERVE_BATCH]))
+    check(all(r.file_ids == (0,) for r in results),
+          "the service finds every genuine read of one batch")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched on the flat-filter path")
+    snap = obs_metrics.DEFAULT.snapshot()
+    runs = {op: (obs_metrics.counter_total(snap, "locality.probe_runs",
+                                           {"op": op}),
+                 obs_metrics.counter_total(snap, "locality.probes",
+                                           {"op": op}))
+            for op in ("insert", "query")}
+    print(f"phase 4 flat IDL Bloom filter: ok — m {cfg.m} bits "
+          f"({eng.state.nbytes} B), L {cfg.L}, η {cfg.eta}, k {cfg.k}, t "
+          f"{cfg.t}; genome {len(g)} bases (uncut); ingest {ingest_s:.3f} s "
+          f"in batches of {INSERT_BATCH} reads; legacy "
+          f"path: locations {legacy_s[0]:.3f} s, plan_insert_rounds "
+          f"{legacy_s[1]:.3f} s ({len(plan.rounds)} rounds, {plan.n_tiles} "
+          f"runs, {plan.n_locs} locations), insert_with_plan "
+          f"{legacy_s[2]:.3f} s; "
+          f"filters equal word for word; fill "
+          f"{float(eng.fill_fraction):.6f}; serve {SERVE_BATCHES} x "
+          f"{SERVE_BATCH} reads, msmt batch ms "
+          f"{[round(b, 3) for b in batch_ms]}, all true; probe_membership "
+          f"== query_batch on every batch; IDL probe plans {n_runs} runs for "
+          f"{n_probes} probes (mean {n_probes / n_runs:.4f} probes/run); "
+          f"poisoned reads false {n_false}/{SERVE_BATCH}; service batch "
+          f"all matched; planner runs/probes insert "
+          f"{runs['insert'][0]:.0f}/{runs['insert'][1]:.0f} query "
+          f"{runs['query'][0]:.0f}/{runs['query'][1]:.0f}; launches "
+          f"{json.dumps(launches)}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B")
+    stages = stage_means(snap, ingest_s, batch_ms)
+    print("phase 4 where the time goes (host ms per batch, means over the "
+          "flat path's run; the query stages also time the query_batch "
+          "checks): " + json.dumps(stages, sort_keys=True))
+    return launches
 
 
 def main() -> None:
@@ -423,9 +806,20 @@ def main() -> None:
     archive = genome.synth_archive(cfg.n_files, genome_len=GENOME_LEN,
                                    seed=ARCHIVE_SEED)
     kernels = main_shapes_phase(cfg, archive, dev)
+    kernels.append(window_min_phase(dev))
+    fcfg = flat_config()
+    g = genome.synthesize_genome(FLAT_GENOME_LEN, seed=0)
+    kernels += flat_kernels_phase(fcfg, g, dev)
     torch.cuda.empty_cache()
-    main_path_phase(cfg, archive, dev, kernels)
+    paths = [main_path_phase(cfg, archive, dev)]
+    torch.cuda.empty_cache()        # phase 3's 8 GiB index is freed
+    paths.append(flat_path_phase(fcfg, g, dev))
+    for rec in kernels:
+        rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print("device ms per kernel call, CUDA-graph replay of 20 calls x 10 "
+          "(the JSON line's ms are CUDA events over back-to-back calls, "
+          "host wrapper included): " + json.dumps(GRAPH_MS))
 
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

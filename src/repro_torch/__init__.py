@@ -8,15 +8,21 @@ point (default ``"cuda"``; pass ``"cpu"`` to run the plain versions).
 
 Integer conventions (torch on the CPU has no ``>>`` for unsigned types):
 
+* 64-bit hashes travel in ``int64`` tensors with the reference's
+  ``uint64`` bits: products and sums wrap alike, every ``>>`` is made
+  logical (``core.hashing.lshr``), and an unsigned minimum flips the sign
+  bit before and after (``core.minhash.SIGN``); ``UINT64_MAX`` is ``-1``;
 * 32-bit lane hashes travel in ``int64`` tensors holding values in
   ``[0, 2**32)``, masked with ``& 0xFFFFFFFF`` after every product and sum,
   so shifts are logical and the ``0xFFFFFFFF`` empty-bin sentinel sorts
   last;
+* locations are ``int64`` in ``[0, 2**32)``;
 * packed bit-matrix words are ``int32`` tensors holding the same 32 bits
   as the reference's ``uint32`` words (compare with ``.view(np.uint32)``).
 
-The two kernels on the ingest-to-serve path are hand-written CUDA C++
-(``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``
+The kernels (``gather_planned_rows``, ``insert_planned``, ``window_min``,
+``probe_planned_bits``) are hand-written CUDA C++ (``csrc/``), built with
+``nvcc`` at first use and bound with ``ctypes``
 (:mod:`repro_torch.kernels.build`).
 """
 

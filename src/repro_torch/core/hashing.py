@@ -1,21 +1,117 @@
-"""Seeded integer hashes on the 32-bit lane path.
+"""Seeded integer hashes: the 64-bit family and the 32-bit lane path.
 
-Port of the 32-bit half of :mod:`repro.core.hashing` (the murmur3 finalizer
-with seed-derived odd multipliers, and the Lemire-style range reduction).
-Lane values are ``int64`` tensors holding ``uint32`` values in
-``[0, 2**32)``: every product and sum is reduced with ``& M32``, so the low
-32 bits equal the reference's wrapped ``uint32`` arithmetic exactly and
-``>>`` on the non-negative values is a logical shift.
+Port of :mod:`repro.core.hashing` (the murmur3 finalizers with
+seed-derived odd multipliers, and the Lemire-style range reductions).
+
+* **64-bit family** — ``uint64`` values travel in ``int64`` tensors with the
+  same 64 bits. Products and sums wrap mod 2**64 exactly as ``uint64``
+  does; every ``>>`` is made logical with :func:`lshr` (mask after the
+  arithmetic shift). Constants above 2**63 enter as their signed twins
+  (:func:`s64`).
+* **32-bit lane path** — ``int64`` tensors hold ``uint32`` values in
+  ``[0, 2**32)``: every product and sum is reduced with ``& M32``, so the
+  low 32 bits equal the reference's wrapped ``uint32`` arithmetic exactly
+  and ``>>`` on the non-negative values is a logical shift.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
+M64 = (1 << 64) - 1
+_M1_64 = 0xFF51AFD7ED558CCD
+_M2_64 = 0xC4CEB9FE1A85EC53
+_GOLDEN_64 = 0x9E3779B97F4A7C15
 _M1_32 = 0x85EBCA6B
 _M2_32 = 0xC2B2AE35
 _GOLDEN_32 = 0x9E3779B9
+
+
+def s64(c: int) -> int:
+    """The int64 value with the same 64 bits as the uint64 constant ``c``."""
+    c &= M64
+    return c - (1 << 64) if c >> 63 else c
+
+
+def lshr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64-carried uint64 values (0 < s < 64)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def seed_const64(seed: int) -> int:
+    """Derive a well-mixed odd 64-bit multiplier from a small integer seed
+    (a Python int in ``[0, 2**64)``: the reference's uint64 scalar)."""
+    s = ((int(seed) + _GOLDEN_64) * _M1_64) & M64
+    s ^= s >> 29
+    s = (s * _M2_64) & M64
+    s ^= s >> 32
+    return s | 1
+
+
+def mix64(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 64-bit finalizer (bijective avalanche on uint64 values)."""
+    x = x.to(torch.int64)
+    x = x ^ lshr(x, 33)
+    x = x * s64(_M1_64)
+    x = x ^ lshr(x, 33)
+    x = x * s64(_M2_64)
+    return x ^ lshr(x, 33)
+
+
+def hash64(x: torch.Tensor, seed: int) -> torch.Tensor:
+    """Seeded 64-bit hash: full-range uint64 values carried in int64."""
+    c = seed_const64(seed)
+    return mix64(x.to(torch.int64) * s64(c) + (c >> 17))
+
+
+def hash_to_range(x: torch.Tensor, seed: int, m: int) -> torch.Tensor:
+    """Seeded hash of integer keys into ``[0, m)`` (int64 values).
+
+    The multiply-shift (Lemire) reduction on the top 32 bits of a 64-bit
+    hash. ``hi * m`` can reach 2**64 (m = 2**32), so the int64 product
+    wraps negative; its top 32 bits are still ``(p >> 32) & M32``.
+    """
+    if m <= 0:
+        raise ValueError(f"range m must be positive, got {m}")
+    if m > (1 << 32):
+        raise ValueError(f"range m={m} exceeds uint32")
+    hi = lshr(hash64(x, seed), 32)
+    return ((hi * s64(m)) >> 32) & M32
+
+
+def hash_family_to_range(x: torch.Tensor, seeds: Sequence[int], m: int
+                         ) -> torch.Tensor:
+    """``(len(seeds),) + x.shape`` independent hashes of x into [0, m)."""
+    return torch.stack([hash_to_range(x, s, m) for s in seeds], dim=0)
+
+
+def np_hash64(x: np.ndarray, seed: int) -> np.ndarray:
+    """Pure-numpy mirror of :func:`hash64` (host-side pipelines; uint64)."""
+    with np.errstate(over="ignore"):
+        s = np.uint64(seed)
+        s = (s + np.uint64(_GOLDEN_64)) * np.uint64(_M1_64)
+        s ^= s >> np.uint64(29)
+        s *= np.uint64(_M2_64)
+        s ^= s >> np.uint64(32)
+        c = s | np.uint64(1)
+        x = x.astype(np.uint64) * c + (c >> np.uint64(17))
+        x ^= x >> np.uint64(33)
+        x *= np.uint64(_M1_64)
+        x ^= x >> np.uint64(33)
+        x *= np.uint64(_M2_64)
+        x ^= x >> np.uint64(33)
+    return x
+
+
+def np_hash_to_range(x: np.ndarray, seed: int, m: int) -> np.ndarray:
+    h = np_hash64(x, seed)
+    hi = h >> np.uint64(32)
+    with np.errstate(over="ignore"):
+        return ((hi * np.uint64(m)) >> np.uint64(32)).astype(np.uint32)
 
 
 def to_int32_bits(x: torch.Tensor) -> torch.Tensor:

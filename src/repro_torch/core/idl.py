@@ -1,12 +1,16 @@
-"""IDentity-with-Locality (IDL) locations on the 32-bit lane path.
+"""IDentity-with-Locality (IDL) locations: the 64-bit hash path and the
+32-bit lane path.
 
-Port of :mod:`repro.core.idl` (``IDLConfig``, ``idl_locations_rolling32``,
-``rh_locations_rolling32``). ψ_j(x) = j·m' + ρ₁_j(MinHash_j(x)) + ρ₂_j(x):
+Port of :mod:`repro.core.idl`. ψ_j(x) = j·m' + ρ₁_j(MinHash_j(x)) + ρ₂_j(x):
 a rolling densified one-permutation MinHash (or η exact MinHashes) picks
 the anchor, a hash of the kmer itself picks the offset inside the L-window.
+The 64-bit path (``idl_locations_rolling`` and the ``rh``, ``lsh`` and
+``idl-bbf`` schemes) hashes uint64 kmers carried in int64; the 32-bit lane
+path (``*_rolling32``) uses only 32-bit lane arithmetic.
 
 Codes may carry leading batch axes: ``(..., n)`` uint8 codes give
-``(..., η, n - k + 1)`` int64 locations (values < m < 2**31).
+``(..., η, n - k + 1)`` int64 locations in ``[0, 2**32)`` (the reference's
+uint32 locations: at m = 2**32 they reach 2**32 - 1).
 """
 
 from __future__ import annotations
@@ -69,6 +73,108 @@ class IDLConfig:
 
     def exact_seeds(self) -> list[int]:
         return [_SALT_MH + 7919 * j for j in range(self.eta)]
+
+
+def _minhash_rolling(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
+    if cfg.minhash_mode == "exact":
+        return minhash.minhash_exact(subk, cfg.w, cfg.exact_seeds())
+    return minhash.doph_minhash(subk, cfg.w, cfg.eta, seed=_SALT_MH)
+
+
+def _combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
+             ) -> torch.Tensor:
+    """ψ_j(x) = j·m' + ρ₁_j(mh_j(x)) + ρ₂_j(x): ``(..., η, n)`` int64.
+
+    align=True: ρ₁ picks a block index in [m'/L], scaled by L, so the
+    locality window is one block. align=False: paper layout, ρ₁ uniform over
+    [m' − L]. Sums wrap mod 2**32 as the reference's uint32 sums do.
+    """
+    locs = []
+    for j in range(cfg.eta):
+        if cfg.align:
+            anchor = hashing.hash_to_range(
+                mh[..., j, :], _SALT_ANCHOR + 31 * j, cfg.m_part // cfg.L
+            ) * cfg.L
+        else:
+            anchor = hashing.hash_to_range(
+                mh[..., j, :], _SALT_ANCHOR + 31 * j, cfg.anchor_range)
+        local = hashing.hash_to_range(kmer_arr, _SALT_LOCAL + 31 * j, cfg.L)
+        locs.append((anchor + local + j * cfg.m_part) & _M32)
+    return torch.stack(locs, dim=-2)
+
+
+def idl_locations_rolling(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
+    """IDL bit locations for every stride-1 kmer of a code sequence (the
+    rolling MinHash as a sliding-window minimum): ``(..., η, n - k + 1)``."""
+    subk = kmers.pack_kmers(codes, cfg.t)
+    mh = _minhash_rolling(cfg, subk)
+    return _combine(cfg, mh, kmers.pack_kmers(codes, cfg.k))
+
+
+def idl_locations_kmer_batch(cfg: IDLConfig, kmer_arr: torch.Tensor
+                             ) -> torch.Tensor:
+    """IDL bit locations for an arbitrary batch of packed kmers; agrees
+    exactly with :func:`idl_locations_rolling` on sequential kmers."""
+    mh = minhash.minhash_kmer_batch(
+        kmer_arr, cfg.k, cfg.t, cfg.eta,
+        mode=cfg.minhash_mode, seed=_SALT_MH,
+        seeds=cfg.exact_seeds() if cfg.minhash_mode == "exact" else None,
+    )
+    return _combine(cfg, mh, kmer_arr)
+
+
+def idl_bbf_locations_rolling(cfg: IDLConfig, codes: torch.Tensor,
+                              block_bits: int = 512) -> torch.Tensor:
+    """IDL × Blocked-Bloom-filter composition (paper §3.3): the MinHash
+    anchor of repetition 0 picks the L-window, a per-key hash picks one
+    ``block_bits`` block inside it, and all η probes land in that block."""
+    subk = kmers.pack_kmers(codes, cfg.t)
+    mh = _minhash_rolling(cfg, subk)
+    kmer_arr = kmers.pack_kmers(codes, cfg.k)
+    n_blocks_in_window = max(cfg.L // block_bits, 1)
+    window = hashing.hash_to_range(
+        mh[..., 0, :], _SALT_ANCHOR, cfg.m // cfg.L) * cfg.L
+    blk = hashing.hash_to_range(
+        kmer_arr, _SALT_LOCAL, n_blocks_in_window) * block_bits
+    return torch.stack([
+        (window + blk + hashing.hash_to_range(kmer_arr, _SALT_RH + 97 * j,
+                                              block_bits)) & _M32
+        for j in range(cfg.eta)
+    ], dim=-2)
+
+
+def rh_locations(cfg: IDLConfig, kmer_arr: torch.Tensor) -> torch.Tensor:
+    """Baseline partitioned-RH locations (MurmurHash-style), same layout."""
+    return torch.stack([
+        (hashing.hash_to_range(kmer_arr, _SALT_RH + 31 * j, cfg.m_part)
+         + j * cfg.m_part) & _M32
+        for j in range(cfg.eta)
+    ], dim=-2)
+
+
+def rh_locations_rolling(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
+    return rh_locations(cfg, kmers.pack_kmers(codes, cfg.k))
+
+
+def lsh_locations_rolling(cfg: IDLConfig, codes: torch.Tensor
+                          ) -> torch.Tensor:
+    """Rehashed MinHash only (Table 4's ablation: locality but identity
+    loss)."""
+    mh = _minhash_rolling(cfg, kmers.pack_kmers(codes, cfg.t))
+    return torch.stack([
+        (hashing.hash_to_range(mh[..., j, :], _SALT_ANCHOR + 31 * j,
+                               cfg.m_part) + j * cfg.m_part) & _M32
+        for j in range(cfg.eta)
+    ], dim=-2)
+
+
+def locations(cfg: IDLConfig, codes: torch.Tensor, scheme: str
+              ) -> torch.Tensor:
+    """Rolling locations for a named scheme (dispatch lives in
+    :mod:`repro_torch.index.registry`)."""
+    from repro_torch.index import registry  # local import: registry imports us
+
+    return registry.locations(cfg, codes, scheme)
 
 
 def _doph32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:

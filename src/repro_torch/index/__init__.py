@@ -1,8 +1,9 @@
 """Gene-sequence index: hash registry, packed storage, query and ingest
-layers, index state, snapshot store, and the bit-sliced engine."""
+layers, index state, snapshot store, and the flat-filter and bit-sliced
+engines."""
 
 from repro_torch.index import ingest, packed, query, registry, state, store
-from repro_torch.index.engines import BitSlicedIndex
+from repro_torch.index.engines import BitSlicedIndex, PackedBloomIndex
 from repro_torch.index.ingest import InsertPlan, build_archive, plan_insert
 from repro_torch.index.query import QueryPlan, plan_query
 from repro_torch.index.state import IndexState, StaleIndexError, StateMeta
@@ -12,6 +13,7 @@ __all__ = [
     "BitSlicedIndex",
     "IndexState",
     "InsertPlan",
+    "PackedBloomIndex",
     "QueryPlan",
     "SnapshotError",
     "StaleIndexError",

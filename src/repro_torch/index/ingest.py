@@ -164,7 +164,7 @@ def plan_insert(
     matrix_shape: tuple[int, int],
     *,
     kind: str,
-    lane32: bool = True,
+    lane32: bool = False,
     rows_per_block: Optional[int] = None,
     inserts_per_run: Optional[int] = None,
     device="cuda",

@@ -1,32 +1,32 @@
-"""Packed int32 word storage: batched locations, the plain scatter-OR, and
-file-mask unpacking.
+"""Packed int32 word storage: batched locations, the plain scatter-ORs,
+and layout conversions.
 
-Port of the lane32 half of :mod:`repro.index.packed`. Bloom-filter bits
-live packed 32 per int32 word (the reference's uint32 words, same bits).
+Port of :mod:`repro.index.packed`. Bloom-filter bits live packed 32 per
+int32 word (the reference's uint32 words, same bits).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bloom as bloom_mod
 from repro_torch.core import idl as idl_mod
-from repro_torch.core.hashing import to_int32_bits
+from repro_torch.core.hashing import M32, to_int32_bits
 from repro_torch.index import registry
 
 
 def batch_locations(
     cfg: idl_mod.IDLConfig, reads: torch.Tensor, scheme: str, *,
-    lane32: bool = True,
+    lane32: bool = False,
 ) -> torch.Tensor:
     """(B, η, n_kmers) int64 locations for a (B, read_len) batch of reads.
 
-    The location functions work along the last axis, so the batch axis is
-    written out instead of mapped. Only the 32-bit lane path is ported.
+    ``lane32`` picks the 32-bit lane path over the 64-bit hash path. The
+    location functions work along the last axis, so the batch axis is
+    written out instead of mapped.
     """
-    if not lane32:
-        raise NotImplementedError(
-            "only the 32-bit lane location path (lane32=True) is ported")
-    return registry.locations32(cfg, reads, scheme)
+    fn = registry.locations32 if lane32 else registry.locations
+    return fn(cfg, reads, scheme)
 
 
 def scatter_or_matrix(
@@ -54,6 +54,31 @@ def scatter_or_matrix(
     flat = matrix.view(-1)
     flat[words] = flat[words] | to_int32_bits(acc)
     return matrix
+
+
+def scatter_or(words: torch.Tensor, locs: torch.Tensor) -> torch.Tensor:
+    """OR the bits at flat bit locations ``locs`` into the packed (n,) int32
+    ``words`` in place; returns ``words``. Locations are read as uint32 (as
+    the reference casts them); those past the last word are dropped."""
+    flat = locs.reshape(-1).to(torch.int64) & M32
+    scatter_or_matrix(words.view(-1, 1), flat >> 5, torch.zeros_like(flat),
+                      flat & 31)
+    return words
+
+
+def pack_rows(bits_u8: torch.Tensor) -> torch.Tensor:
+    """(..., m) uint8 {0,1} -> (..., m/32) int32 (rowwise ``pack_bits``)."""
+    m = bits_u8.shape[-1]
+    if m % 32:
+        raise ValueError(f"row length m={m} must be a multiple of 32")
+    flat = bloom_mod.pack_bits(bits_u8.reshape(-1))
+    return flat.reshape(bits_u8.shape[:-1] + (m // 32,))
+
+
+def unpack_rows(words: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m/32) int32 -> (..., m) uint8 (rowwise ``unpack_bits``)."""
+    flat = bloom_mod.unpack_bits(words.reshape(-1))
+    return flat.reshape(words.shape[:-1] + (m,))
 
 
 def unpack_file_bits(masks: torch.Tensor, n_files: int) -> torch.Tensor:

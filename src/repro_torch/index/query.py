@@ -239,7 +239,7 @@ def plan_query(
     matrix_shape: tuple[int, int],
     *,
     bit_probe: bool,
-    lane32: bool = True,
+    lane32: bool = False,
     rows_per_block: Optional[int] = None,
     probes_per_run: Optional[int] = None,
     device="cuda",

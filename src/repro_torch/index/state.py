@@ -1,6 +1,7 @@
 """Functional index state: word matrices plus static meta.
 
-Port of :mod:`repro.index.state` for the bit-sliced engine. An
+Port of :mod:`repro.index.state` for the flat-filter and bit-sliced
+engines. An
 :class:`IndexState` is a tuple of packed ``(n_rows, W)`` int32 word
 matrices and a hashable :class:`StateMeta`; engines are thin views over it.
 
@@ -118,6 +119,13 @@ def from_engine(index) -> IndexState:
 
     if isinstance(index, IndexState):
         return index
+    if isinstance(index, engines.PackedBloomIndex):
+        ensure_live(index, what="engine")
+        return IndexState(
+            words=(index.words,),
+            meta=StateMeta(engine="bloom", scheme=index.scheme,
+                           cfgs=(index.cfg,)),
+        )
     if isinstance(index, engines.BitSlicedIndex):
         ensure_live(index, what="engine")
         return IndexState(
@@ -134,12 +142,16 @@ def to_engine(state: IndexState):
 
     ensure_live(state, what="IndexState")
     meta = state.meta
+    if meta.engine == "bloom":
+        return engines.PackedBloomIndex(
+            cfg=meta.cfgs[0], scheme=meta.scheme, words=state.words[0])
     if meta.engine == "bitsliced":
         return engines.BitSlicedIndex(
             cfg=meta.cfgs[0], scheme=meta.scheme, n_files=meta.n_files,
             words=state.words[0])
     raise NotImplementedError(
-        f"engine kind {meta.engine!r} is not ported yet (bitsliced only)")
+        f"engine kind {meta.engine!r} is not ported yet (bloom and "
+        "bitsliced only)")
 
 
 def insert(state: IndexState, reads, file_ids=None, *, donate: bool = True,

@@ -26,6 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "gather_planned_rows": CSRC / "gather_planned_rows.cu",
     "insert_planned": CSRC / "insert_planned.cu",
+    "probe_planned_bits": CSRC / "probe_planned_bits.cu",
+    "window_min": CSRC / "window_min.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,12 +1,20 @@
-"""Host-side insert planner + executor of the ``insert_planned`` kernel.
+"""Host-side insert planners + executors of the ``insert_planned`` kernel.
 
-The planner is the reference's ``plan_insert_runs``, verbatim (numpy): the
-batch's flat bit positions are sorted and deduplicated once, then
-run-length-encoded by matrix row-block. :func:`insert_planned` executes a
-plan in place: the kernel ORs each valid offset's bit straight into the
-matrix, so the planner's ``slot_ids``/``uniq_blocks`` tile bookkeeping and
-its pow2 pad runs (which the TPU kernel needs) are kept only for parity and
-byte accounting.
+Two generations of planner, both the reference's, verbatim (numpy):
+
+* :func:`plan_insert_rounds` (legacy, the flat filter) groups an (η, n)
+  location grid by block into ROUNDS in which every block id is unique —
+  the TPU kernel's way to avoid write conflicts, one launch per round.
+  :func:`insert_with_plan` executes all rounds with ONE kernel launch: the
+  kernel ORs with atomics, which need no rounds.
+* :func:`plan_insert_runs` — the planner behind ``repro_torch.index.
+  ingest``: the batch's flat bit positions are sorted and deduplicated
+  once, then run-length-encoded by matrix row-block.
+  :func:`insert_planned` executes a plan in place: the kernel ORs each
+  valid offset's bit straight into the matrix, so the planner's
+  ``slot_ids``/``uniq_blocks`` tile bookkeeping and its pow2 pad runs
+  (which the TPU kernel needs) are kept only for parity and byte
+  accounting.
 """
 
 from __future__ import annotations
@@ -17,6 +25,79 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.idl_insert import kernel
+
+
+@dataclasses.dataclass
+class InsertPlan:
+    """The legacy rounds plan of the flat filter."""
+
+    rounds: list[tuple[np.ndarray, np.ndarray]]  # [(block_ids (R,), offsets (R, C))]
+    block_bits: int
+    inserts_per_round: int
+    n_locs: int
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(int(b.shape[0]) for b, _ in self.rounds)
+
+    @property
+    def dma_bytes(self) -> int:
+        # read + write one tile per scheduled block
+        return 2 * self.n_tiles * (self.block_bits // 8)
+
+
+def plan_insert_rounds(
+    locs: np.ndarray, block_bits: int, inserts_per_round: int = 128
+) -> InsertPlan:
+    flat = np.asarray(locs, dtype=np.int64).reshape(-1)
+    c = inserts_per_round
+    blocks = flat // block_bits
+    offsets = (flat % block_bits).astype(np.int32)
+    order = np.argsort(blocks, kind="stable")
+    blocks_s = blocks[order]
+    offsets_s = offsets[order]
+    # segment boundaries per block
+    uniq, starts = np.unique(blocks_s, return_index=True)
+    ends = np.append(starts[1:], len(blocks_s))
+    counts = ends - starts
+    max_rounds = int(np.ceil(counts.max() / c)) if len(counts) else 0
+    rounds = []
+    for r in range(max_rounds):
+        sel = counts > r * c
+        bids = uniq[sel].astype(np.int32)
+        offs = np.full((len(bids), c), -1, dtype=np.int32)
+        for i, (s, e) in enumerate(zip(starts[sel], ends[sel])):
+            lo = s + r * c
+            hi = min(e, lo + c)
+            offs[i, : hi - lo] = offsets_s[lo:hi]
+        rounds.append((bids, offs))
+    return InsertPlan(
+        rounds=rounds, block_bits=block_bits,
+        inserts_per_round=c, n_locs=len(flat),
+    )
+
+
+def insert_with_plan(bf_words: torch.Tensor, plan: InsertPlan
+                     ) -> torch.Tensor:
+    """OR a rounds plan's bits into the packed (n_words,) int32 flat filter
+    in place; returns ``bf_words``. The rounds go to the device together:
+    one kernel launch on a CUDA filter, the plain version round by round on
+    a CPU one."""
+    if not plan.rounds:
+        return bf_words
+    block_words = plan.block_bits // 32
+    if bf_words.shape[0] % block_words:
+        raise ValueError("bf length must be a multiple of block_words")
+    bids = np.concatenate([b for b, _ in plan.rounds])
+    if int(bids.max()) >= bf_words.shape[0] // block_words or bids.min() < 0:
+        raise ValueError("plan names a block outside the filter")
+    offs = np.concatenate([o for _, o in plan.rounds])
+    starts = np.cumsum([0] + [b.shape[0] for b, _ in plan.rounds[:-1]])
+    dev = bf_words.device
+    return kernel.insert_rounds(
+        bf_words, torch.as_tensor(bids, device=dev),
+        torch.as_tensor(offs, device=dev), block_words=block_words,
+        round_starts=tuple(int(s) for s in starts))
 
 
 _PAD_BLOCK = np.int32(np.iinfo(np.int32).max)  # never a real block id

@@ -1,10 +1,12 @@
-"""Host-side probe planner + executor of the ``gather_planned_rows`` kernel.
+"""Host-side probe planner + executors of the ``gather_planned_rows`` and
+``probe_planned_bits`` kernels.
 
 The planner is the reference's, verbatim (numpy): it run-length-encodes
-the probe stream by matrix row-block and emits fixed-shape run arrays.
-:func:`gather_planned_rows` executes a plan on the plan's matrix: the
-kernel writes every probe's row straight into probe order, so the TPU
-path's ``(R_pad, C, W)`` intermediate and its pow2 run padding are gone.
+the probe stream by block and emits fixed-shape run arrays.
+:func:`gather_planned_rows` executes a row plan on a matrix and
+:func:`probe_membership` a bit plan on a flat filter: each kernel writes
+every probe's answer straight into probe order, so the TPU path's
+``(R_pad, C, ...)`` intermediates and its pow2 run padding are gone.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.idl_probe import kernel
+from repro_torch.kernels.idl_probe import kernel, ref
 
 
 @dataclasses.dataclass
@@ -100,6 +102,15 @@ def plan_probe_runs(
     )
 
 
+def _plan_arrays(plan: ProbePlan, n_blocks: int, device):
+    """The plan's block ids, offsets and probe indices on ``device``;
+    raises if a run names a block past the last of ``n_blocks``."""
+    if plan.n_runs and int(plan.block_ids.max()) >= n_blocks:
+        raise ValueError("plan names a block outside the matrix")
+    return [torch.as_tensor(a, device=device)
+            for a in (plan.block_ids, plan.offsets, plan.probe_index)]
+
+
 def gather_planned_rows(matrix: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
     """Execute a row plan; return (n_probes, W) int32 rows in probe order.
 
@@ -113,13 +124,32 @@ def gather_planned_rows(matrix: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
     if matrix.shape[0] % rpb:
         raise ValueError(
             f"rows_per_block={rpb} must divide n_rows={matrix.shape[0]}")
-    if plan.n_runs and int(plan.block_ids.max()) >= matrix.shape[0] // rpb:
-        raise ValueError("plan names a row block outside the matrix")
-    dev = matrix.device
-    return kernel.gather_planned_rows(
-        matrix,
-        torch.as_tensor(plan.block_ids, device=dev),
-        torch.as_tensor(plan.offsets, device=dev),
-        torch.as_tensor(plan.probe_index, device=dev),
-        rows_per_block=rpb, n_probes=plan.n_probes,
-    )
+    bids, offs, pidx = _plan_arrays(plan, matrix.shape[0] // rpb,
+                                    matrix.device)
+    return kernel.gather_planned_rows(matrix, bids, offs, pidx,
+                                      rows_per_block=rpb,
+                                      n_probes=plan.n_probes)
+
+
+def probe_membership(bf_words: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
+    """Execute a bit plan on the packed (n_words,) int32 flat filter;
+    return (n_keys,) bool membership (AND over η). One kernel launch on a
+    CUDA filter; the plain version on a CPU one."""
+    block_words = plan.block_bits // 32
+    if bf_words.shape[0] % block_words:
+        raise ValueError("bf length must be a multiple of block_words")
+    bids, offs, pidx = _plan_arrays(
+        plan, bf_words.shape[0] // block_words, bf_words.device)
+    bits = kernel.probe_planned_bits(
+        bf_words, bids, offs, pidx, block_words=block_words,
+        n_probes=plan.n_probes)
+    return (bits.view(plan.eta, plan.n_keys) == 1).all(dim=0)
+
+
+def scatter_and_reduce(bits: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
+    """(R, C) run bits -> (n_keys,) membership via the plan's probe_index
+    (pad lanes are dropped)."""
+    flat = ref.scatter_probe_order(
+        bits, torch.as_tensor(plan.probe_index, device=bits.device),
+        plan.n_probes)
+    return (flat.view(plan.eta, plan.n_keys) == 1).all(dim=0)

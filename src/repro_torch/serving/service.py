@@ -1,6 +1,7 @@
 """Gene-search serving: typed requests, shape-bucketed dynamic batching.
 
-Port of :mod:`repro.serving.service` (the membership cache is left out).
+Port of :mod:`repro.serving.service` for the flat-filter and bit-sliced
+engines (the membership cache is left out).
 
 * **Typed boundary** — :class:`SearchRequest` in (one read of any length
   >= k), :class:`SearchResult` out (per-file verdicts + decoded ids + the
@@ -64,8 +65,10 @@ class SearchRequest:
 
 @dataclasses.dataclass(frozen=True)
 class SearchResult:
-    """Engine verdicts for one request: ``matches`` is the (n_files,) bool
-    ``msmt`` row and ``file_ids`` its decoded matching file indices."""
+    """Engine verdicts for one request: ``matches`` is the engine's ``msmt``
+    row — a (n_files,) bool vector, or a scalar bool for the single-set flat
+    filter — and ``file_ids`` its decoded matching file indices (``(0,)``
+    or ``()`` for the flat filter)."""
 
     request_id: int
     matches: np.ndarray
@@ -138,27 +141,34 @@ def emit_request_spans(entries, *, bucket: int, t0: float, t_asm: float,
         t0, stages, t_done, shared_attrs={"bucket": bucket})
 
 
-def _msmt_reduce(n_files: int, theta: float, per, valid, need):
-    """Per-kmer file masks -> per-request (B, n_files) verdicts, with pad
-    kmers masked and per-row thresholds (the one theta rule)."""
-    if theta >= 1.0:
-        # a row matches iff all its valid kmers hit: the masked AND path
-        mask = query.file_match_mask(per, theta, valid=valid)
-    else:
-        mask = query.file_match_mask(per, theta, valid=valid, need=need)
-    return packed.unpack_file_bits(mask, n_files)
+def _msmt_reduce(kind: str, n_files: int, theta: float, per, valid, need):
+    """Per-kmer engine output -> per-request verdicts, with pad kmers masked
+    and per-row thresholds (the one theta rule): (B, n_files) bool for the
+    bit-sliced index, (B,) bool for the single-set flat filter."""
+    if kind == "bitsliced":
+        if theta >= 1.0:
+            # a row matches iff all its valid kmers hit: the masked AND path
+            mask = query.file_match_mask(per, theta, valid=valid)
+        else:
+            mask = query.file_match_mask(per, theta, valid=valid, need=need)
+        return packed.unpack_file_bits(mask, n_files)
+    return query.member_coverage(per, theta, valid=valid, need=need)
+
+
+SERVED_ENGINES = ("bloom", "bitsliced")
 
 
 class GeneSearchService:
-    """Dynamic-batching front-end over a bit-sliced :class:`IndexState`."""
+    """Dynamic-batching front-end over a flat-filter or bit-sliced
+    :class:`IndexState`."""
 
     def __init__(self, index, config: Optional[ServiceConfig] = None):
         self.config = config or ServiceConfig()
         self._state = state_mod.from_engine(index)
-        if self._state.meta.engine != "bitsliced":
+        if self._state.meta.engine not in SERVED_ENGINES:
             raise NotImplementedError(
                 f"serving engine {self._state.meta.engine!r} is not ported "
-                "yet (bitsliced only)")
+                f"yet (one of {SERVED_ENGINES})")
         self._k = state_mod.kmer_size(self._state.meta)
         self._next_id = 0
         self._pending: Dict[int, List[Tuple[SearchRequest, int]]] = {}
@@ -193,7 +203,7 @@ class GeneSearchService:
 
     @property
     def n_files(self) -> int:
-        return int(self._state.meta.n_files)
+        return int(self._state.meta.n_files or 1)
 
     # -- admission ----------------------------------------------------------
     def bucket_for(self, n_kmers: int) -> int:
@@ -249,7 +259,8 @@ class GeneSearchService:
         step = self._runners.get(bucket)
         if step is None:
             reduce = functools.partial(
-                _msmt_reduce, self.n_files, self.config.theta)
+                _msmt_reduce, self._state.meta.engine, self.n_files,
+                self.config.theta)
             backend = self.config.backend
 
             def step(state, reads, valid, need):
@@ -290,12 +301,16 @@ class GeneSearchService:
     def _finalize(self, take, bucket: int, out) -> List[SearchResult]:
         """Copy the verdicts to the host and decode per-request results."""
         out = out.cpu().numpy()
+        single_set = self._state.meta.engine == "bloom"
         results = []
         for i, (req, n_k) in enumerate(take):
             row = out[i]
+            if single_set:
+                fids = (0,) if bool(row) else ()
+            else:
+                fids = tuple(int(f) for f in np.nonzero(row)[0])
             results.append(SearchResult(
-                request_id=req.request_id, matches=row,
-                file_ids=tuple(int(f) for f in np.nonzero(row)[0]),
+                request_id=req.request_id, matches=row, file_ids=fids,
                 n_kmers=n_k, bucket=bucket))
         return results
 

@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import idl  # noqa: E402
+from repro_torch.core import idl, minhash  # noqa: E402
 from repro_torch.index import engines  # noqa: E402
 from repro_torch.kernels.idl_insert import kernel as ins_kernel  # noqa: E402
 from repro_torch.kernels.idl_insert import ops as ins_ops  # noqa: E402
@@ -18,6 +18,8 @@ from repro_torch.kernels.idl_insert import ref as ins_ref  # noqa: E402
 from repro_torch.kernels.idl_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.idl_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import ref as probe_ref  # noqa: E402
+from repro_torch.kernels.window_min import kernel as wm_kernel  # noqa: E402
+from repro_torch.kernels.window_min import ref as wm_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +125,118 @@ def test_engine_backends_agree_on_cuda(cuda):
     assert torch.equal(a, b)
     assert planned.msmt(queries[:8]).cpu().numpy()[
         np.arange(8), fids[:8]].all()
+
+
+def _window_input(rng, shape, dtype, device):
+    if dtype == torch.float32:
+        a = rng.normal(size=shape).astype(np.float32)
+    elif dtype == torch.int32:
+        a = rng.integers(-2 ** 31, 2 ** 31, size=shape).astype(np.int32)
+    else:
+        a = rng.integers(-2 ** 63, 2 ** 63 - 1, size=shape, dtype=np.int64)
+    return torch.as_tensor(a, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32", "float32"])
+@pytest.mark.parametrize("shape,w", [
+    ((1000,), 1), ((3, 700), 2), ((256, 215), 16), ((5, 200), 31),
+    ((2, 255), 16), ((1, 3000), 1024), ((4, 31), 31),
+])
+def test_window_min_kernel_vs_plain(cuda, dtype, shape, w):
+    dtype = getattr(torch, dtype)
+    a = _window_input(np.random.default_rng(w), shape, dtype, cuda)
+    before = wm_kernel.launches
+    got = wm_kernel.window_min(a, w)
+    torch.cuda.synchronize()
+    assert wm_kernel.launches == before + 1
+    assert torch.equal(got, wm_ref.window_min_ref(a, w=w))
+    assert torch.equal(got, wm_ref.window_min_naive(a, w=w))
+
+
+def test_window_min_kernel_unsigned_order_and_errors(cuda):
+    rng = np.random.default_rng(3)
+    h = torch.as_tensor(rng.integers(-2 ** 63, 2 ** 63 - 1, size=(8, 215),
+                                     dtype=np.int64), device=cuda)
+    h[h % 3 == 0] = minhash.UINT64_MAX
+    flipped = h ^ minhash.SIGN
+    got = minhash.sliding_window_min(flipped, 16) ^ minhash.SIGN
+    want = wm_ref.window_min_ref(flipped.cpu(), w=16) ^ minhash.SIGN
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError):
+        wm_kernel.window_min(torch.zeros((2, 2000), device=cuda), 1025)
+    with pytest.raises(ValueError):
+        wm_kernel.window_min(torch.zeros((2, 20), dtype=torch.int16,
+                                         device=cuda), 4)
+    with pytest.raises(ValueError):
+        wm_kernel.window_min(torch.zeros((20, 2), dtype=torch.int64,
+                                         device=cuda).t(), 4)
+
+
+@pytest.mark.parametrize("m,L,c", [(1 << 20, 1 << 12, 128),
+                                   (1 << 18, 1 << 10, 64),
+                                   (1 << 22, 1 << 15, 128)])
+def test_probe_planned_bits_kernel_vs_plain(cuda, m, L, c):
+    rng = np.random.default_rng(m)
+    words = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=m // 32)
+                            .astype(np.int32), device=cuda)
+    locs = rng.integers(0, m, size=(4, 900))
+    locs[1] = np.sort(locs[1])                       # long runs
+    locs[2] = np.sort(rng.integers(0, 3 * L, size=900))
+    plan = probe_ops.plan_probe_runs(locs, block_bits=L, probes_per_run=c)
+    assert (plan.offsets < 0).any()
+    before = probe_kernel.bits_launches
+    got = probe_ops.probe_membership(words, plan)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (plan.block_ids, plan.offsets, plan.probe_index)]
+    bits = probe_kernel.probe_planned_bits(
+        words, *args, block_words=L // 32, n_probes=plan.n_probes)
+    torch.cuda.synchronize()
+    assert probe_kernel.bits_launches == before + 2
+    want = probe_ref.probe_planned_bits_ref(
+        words, *args, block_words=L // 32, n_probes=plan.n_probes)
+    assert torch.equal(bits, want)
+    direct = probe_ref.query_membership_ref(
+        words, torch.as_tensor(locs, device=cuda))
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("m,L,c", [(1 << 20, 1 << 12, 128),
+                                   (1 << 18, 1 << 10, 32)])
+def test_insert_with_plan_kernel_vs_plain(cuda, m, L, c):
+    rng = np.random.default_rng(L)
+    locs = rng.integers(0, m, size=(4, 3000))
+    locs[0, :400] = rng.integers(0, L, size=400)     # one block, many rounds
+    plan = ins_ops.plan_insert_rounds(locs, block_bits=L,
+                                      inserts_per_round=c)
+    assert len(plan.rounds) > 2
+    words = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=m // 32)
+                            .astype(np.int32), device=cuda)
+    want = ins_ops.insert_with_plan(words.cpu(), plan)
+    before = ins_kernel.round_launches
+    got = ins_ops.insert_with_plan(words, plan)
+    torch.cuda.synchronize()
+    assert ins_kernel.round_launches == before + 1   # all rounds, one launch
+    assert got is words
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("scheme", ["idl", "rh"])
+def test_flat_filter_backends_agree_on_cuda(cuda, scheme):
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 12, eta=4, m=1 << 22)
+    rng = np.random.default_rng(9)
+    planned = engines.PackedBloomIndex.build(cfg, scheme, device=cuda)
+    plain = engines.PackedBloomIndex.build(cfg, scheme, device=cuda)
+    host = engines.PackedBloomIndex.build(cfg, scheme, device="cpu")
+    for _ in range(2):
+        reads = rng.integers(0, 4, size=(16, 230), dtype=np.uint8)
+        planned = planned.insert_batch(reads, backend="idl_insert")
+        plain = plain.insert_batch(reads, backend="torch")
+        host = host.insert_batch(reads, backend="torch")
+    assert torch.equal(planned.words, plain.words)
+    assert torch.equal(planned.words.cpu(), host.words)
+    queries = np.concatenate(
+        [reads[:8], rng.integers(0, 4, size=(8, 230), dtype=np.uint8)])
+    a = planned.query_batch(queries, backend="idl_probe")
+    assert torch.equal(a, planned.query_batch(queries, backend="torch"))
+    assert torch.equal(a.cpu(), host.query_batch(queries))
+    assert planned.msmt(queries[:8]).all()

@@ -11,6 +11,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.core import idl as j_idl  # noqa: E402
 from repro.index import engines as j_engines  # noqa: E402
 from repro.index import ingest as j_ingest  # noqa: E402
+from repro.index import packed as j_packed  # noqa: E402
 from repro.index import query as j_query  # noqa: E402
 from repro_torch.core import idl  # noqa: E402
 from repro_torch.index import engines, ingest, packed, query  # noqa: E402
@@ -44,12 +45,23 @@ def _words(rng, n_rows, w, density=0.9):
 def test_plan_query_defaults_match_reference(bit_probe, w):
     jc, tc = _cfgs(L=1 << 12)
     shape = (jc.m // 32, 1) if bit_probe else (jc.m, w)
-    jp = j_query.plan_query(jc, "idl", (8, 100), shape, bit_probe=bit_probe,
-                            lane32=True)
+    jp = j_query.plan_query(jc, "idl", (8, 100), shape, bit_probe=bit_probe)
     tp = query.plan_query(tc, "idl", (8, 100), shape, bit_probe=bit_probe,
-                          lane32=True, device="cpu")
-    assert (tp.rows_per_block, tp.probes_per_run, tp.block_bytes) == \
-        (jp.rows_per_block, jp.probes_per_run, jp.block_bytes)
+                          device="cpu")
+    assert (tp.rows_per_block, tp.probes_per_run, tp.block_bytes,
+            tp.lane32) == \
+        (jp.rows_per_block, jp.probes_per_run, jp.block_bytes, jp.lane32)
+    assert tp.lane32 is False       # the reference's 64-bit hash path
+    kind = "bits" if bit_probe else "cols"
+    ji = j_ingest.plan_insert(jc, "idl", (8, 100), shape, kind=kind)
+    ti = ingest.plan_insert(tc, "idl", (8, 100), shape, kind=kind,
+                            device="cpu")
+    assert (ti.lane32, ti.rows_per_block) == (ji.lane32, ji.rows_per_block)
+    reads = np.random.default_rng(w).integers(0, 4, size=(3, 60),
+                                              dtype=np.uint8)
+    want = np.asarray(j_packed.batch_locations(jc, jnp.asarray(reads), "idl"))
+    got = packed.batch_locations(tc, torch.from_numpy(reads), "idl")
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     accel = query.plan_query(tc, "idl", (8, 100), shape, bit_probe=bit_probe,
                              device="cuda")
     assert accel.probes_per_run == 128
@@ -178,7 +190,6 @@ def test_coverage_need_matches_reference(theta, n):
 
 def test_unpack_file_bits(rng):
     masks = _words(rng, 4, 3)
-    from repro.index import packed as j_packed
     want = np.asarray(j_packed.unpack_file_bits(jnp.asarray(masks), 90))
     got = packed.unpack_file_bits(torch.from_numpy(masks.view(np.int32)), 90)
     np.testing.assert_array_equal(got.numpy(), want)
