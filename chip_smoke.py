@@ -9,31 +9,45 @@ reference package) and runs these phases, printing one line each:
    every kernel source (``-Xptxas -v`` registers / shared memory / spills);
 2. kernels vs their plain PyTorch versions on the card, bit for bit:
    2a-2c the bit-sliced path's ``gather_planned_rows`` and
-   ``insert_planned`` at small widths (W = 1 and 32, pad lanes, ragged run
-   counts, an empty insert plan) and at the main path's shapes (204,800
-   probes into a 2^26 x 32 matrix; one 512-read insert batch); 2d
-   ``window_min`` at small shapes (w in {1, 2, 16, 31}, ragged lengths,
-   int64 lanes with bit 31 set, sign-flipped 64-bit hashes, int32,
-   float32) and at the rolling MinHash's shapes ((256, 215) and (512, 215)
-   int64, w = 16); 2e the flat filter's ``probe_planned_bits`` and
-   ``insert_with_plan`` at the flat filter's shapes (one 256-read probe
-   plan into a 2^27-word filter; a rounds plan with one block in several
-   rounds). Each main-shape kernel is timed with CUDA events beside its
-   plain version, its byte bound and, where one exists, a library call;
+   ``insert_planned`` at small widths (W = 1 and 32; for the gather pad
+   lanes and ragged run counts; for the insert unsorted positions with
+   duplicates, masked ones and a full word, their compact plan, whose
+   counters must equal the reference planner's, a run plan's flattened
+   lanes, and an empty tensor) and at the main path's shapes (204,800
+   probes into a 2^26 x 32 matrix; one 512-read insert batch on its
+   compact operand, with the ``device_plan`` stage's host time and its
+   sort's device time); 2d ``window_min``, one launch per MinHash, at
+   small shapes (w in {1, 2, 16, 31}, ragged lengths; plain int64 lanes
+   with bit 31 set, sign-flipped 64-bit hashes, int32, float32; unsigned
+   int64; the DOPH form, lanes and unsigned 64-bit, with an empty bin;
+   the exact form), at the rolling MinHash's shapes ((256, 215) and (512,
+   215) int64, w = 16, η 4: both DOPH forms, and the exact form signed
+   beside ``unfold(-1, w, 1).amin(-1)`` and unsigned) and over a whole
+   genome's hashes (unsigned DOPH); 2e the flat filter's
+   ``probe_planned_bits`` and ``insert_with_plan`` at the flat filter's
+   shapes (one 256-read probe plan into a 2^27-word filter; a rounds plan
+   with one block in several rounds, its valid lanes flattened on the
+   device). Each main-shape kernel is timed with CUDA events and by
+   CUDA-graph replay beside its plain version, its byte bound and, where
+   one exists, a library call (timed both ways too);
 3. the bit-sliced main path at full width (``full_config``: m = 2^26 rows,
    1024 files, k 31, t 16, L 2^17, η 4): an 8 GiB ``BitSlicedIndex`` built
-   through ``build_archive(backend="idl_insert")`` and served through
-   ``GeneSearchService(backend="idl_probe")`` in 256-read batches; recall
-   must be total and the first batch must match the plain ``"torch"``
-   backend; then the mean host time of each planner stage;
+   through ``build_archive(backend="idl_insert")`` (no numpy run planner
+   call allowed) and served through ``GeneSearchService(backend=
+   "idl_probe")`` in 256-read batches; recall must be total, the first
+   batch must match the plain ``"torch"`` backend, and ``window_min`` must
+   launch once per MinHash; then the mean host time of each planner stage
+   (insert: ``locations``, ``device_plan``, ``launch``; query:
+   ``locations``, ``host_plan``, ``upload_and_launch``);
 4. the paper's flat IDL Bloom filter at full width (m = 2^32 bits, a
    512 MiB filter; L 2^15, η 4, k 31, t 16) over one E. coli-sized genome:
-   ingest through ``build_archive(backend="idl_insert")``, the same
-   genome's locations through ``plan_insert_rounds`` and
-   ``insert_with_plan`` into a second filter (equal word for word), then 8
-   batches of 256 genome reads served through ``msmt`` (all true),
-   ``probe_membership`` (equal to ``query_batch``) and one batch through
-   ``GeneSearchService``, plus poisoned reads counted.
+   ingest through ``build_archive(backend="idl_insert")`` (no numpy run
+   planner call), the same genome's locations through
+   ``plan_insert_rounds`` and ``insert_with_plan`` into a second filter
+   (equal word for word), then 8 batches of 256 genome reads served
+   through ``msmt`` (all true), ``probe_membership`` (equal to
+   ``query_batch``) and one batch through ``GeneSearchService``, plus
+   poisoned reads counted; ``window_min`` once per MinHash.
 
 Every path phase zeroes the launch counters just before it and reads them
 just after; each kernel the path runs must have launched. Then it prints
@@ -45,6 +59,7 @@ without the port beside it, or when any build, launch or check fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -194,9 +209,12 @@ def as_dev(dev, *arrays) -> list:
 
 
 def small_shapes_phase(dev) -> None:
-    """Phase 2a: both kernels against their plain versions at W = 1 and 32
-    (pad lanes, runs longer than one 32-lane step, a padded run count), and
-    an empty insert plan."""
+    """Phase 2a: both kernels against their plain versions at W = 1 and 32.
+    The gather: pad lanes, runs longer than one 32-lane step, a padded run
+    count. The insert: raw positions unsorted, with duplicates, masked
+    ones and a word with all 32 bits set; the compact plan of the same
+    positions (its counters equal the reference planner's); a run plan
+    through its flattened lanes; an empty tensor."""
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
     from repro_torch.kernels.idl_insert import ops as ins_ops
     from repro_torch.kernels.idl_insert import ref as ins_ref
@@ -221,26 +239,44 @@ def small_shapes_phase(dev) -> None:
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"gather W={w} kernel == plain")
         flat = rng.integers(0, 4096 * w * 32, size=5000)
-        flat[:100] = -1
-        iplan = ins_ops.plan_insert_runs(flat, block_bits=64 * w * 32,
-                                         inserts_per_run=128)
-        want = ins_ref.insert_planned_ref(
-            matrix.clone(), *as_dev(dev, iplan.block_ids, iplan.offsets),
-            rows_per_block=64)
-        ins_ops.insert_planned(matrix, iplan)
+        flat[:100] = -1                                 # masked
+        flat = np.concatenate([flat, np.arange(320, 352),   # one full word
+                               np.repeat(flat[100:140], 3)])  # duplicates
+        rng.shuffle(flat)
+        positions = torch.as_tensor(flat, device=dev)
+        want = ins_ref.insert_planned_ref(matrix.clone(), positions)
+        ins_kernel.insert_planned(matrix, positions)
         torch.cuda.synchronize()
-        check(torch.equal(matrix, want), f"insert W={w} kernel == plain")
-        small.append(f"W={w}: {plan.n_runs} gather runs, {iplan.n_runs} "
-                     f"insert runs ({iplan.block_ids.shape[0]} padded)")
+        check(torch.equal(matrix, want),
+              f"insert W={w} kernel == plain (unsorted, duplicates)")
+        block_bits = 64 * w * 32
+        cplan = ins_ops.compact_insert_plan(positions, block_bits, 128)
+        rplan = ins_ops.plan_insert_runs(flat, block_bits=block_bits,
+                                         inserts_per_run=128)
+        check((cplan.n_locs, cplan.n_runs, cplan.n_tiles, cplan.dma_bytes)
+              == (rplan.n_locs, rplan.n_runs, rplan.n_tiles, rplan.dma_bytes)
+              and np.array_equal(cplan.run_lengths(), rplan.run_lengths),
+              f"compact plan W={w} == the reference planner's counters")
+        for name, p in (("compact", cplan), ("run", rplan)):
+            fresh = rand_matrix(4096, w, dev)
+            want = ins_ref.insert_planned_ref(fresh.clone(), positions)
+            ins_ops.insert_planned(fresh, p)
+            torch.cuda.synchronize()
+            check(torch.equal(fresh, want),
+                  f"insert W={w} {name} plan kernel == plain")
+        small.append(f"W={w}: {plan.n_runs} gather runs, {flat.size} insert "
+                     f"positions ({cplan.n_locs} unique in {cplan.n_tiles} "
+                     f"blocks, {cplan.n_runs} runs)")
     matrix = rand_matrix(64, 4, dev)
-    before = matrix.clone()
+    before, launched = matrix.clone(), ins_kernel.launches
     ins_ops.insert_planned(matrix, None)
-    empty = torch.empty((0, 128), dtype=torch.int32, device=dev)
-    ins_kernel.insert_planned(matrix, empty[:, 0], empty, rows_per_block=16)
+    ins_kernel.insert_planned(matrix, torch.empty(0, dtype=torch.int64,
+                                                  device=dev))
     torch.cuda.synchronize()
-    check(torch.equal(matrix, before), "empty insert plan leaves the matrix")
+    check(torch.equal(matrix, before) and ins_kernel.launches == launched,
+          "an empty insert leaves the matrix and launches nothing")
     print(f"phase 2a small shapes: ok (kernel == plain, tolerance 0: "
-          f"bit-exact) — {'; '.join(small)}; empty plan ok")
+          f"bit-exact) — {'; '.join(small)}; empty tensor ok")
 
 
 def main_shapes_phase(cfg, archive, dev) -> list:
@@ -309,49 +345,53 @@ def main_shapes_phase(cfg, archive, dev) -> list:
         "library_ms": cuda_ms(gather_library, 50),
     }
     GRAPH_MS[probe_kernel.NAME] = graph_ms(gather_kernel)
+    GRAPH_MS["torch.index_select"] = graph_ms(gather_library)
     print(f"phase 2b gather at serve shapes: ok (max_abs_err {err}, "
           f"tolerance 0) — {rplan.n_probes} probes in "
           f"{rplan.n_runs} runs of <= {rplan.probes_per_run} "
           f"(mean {rplan.n_probes / rplan.n_runs:.4f} probes/run, rpb {rpb}); "
           f"kernel {gather['ms']:.6f} ms, plain {gather['plain_ms']:.6f} ms, "
-          f"index_select {gather['library_ms']:.6f} ms, bound "
+          f"index_select {gather['library_ms']:.6f} ms (graph replay "
+          f"{GRAPH_MS['torch.index_select']:.6f} ms), bound "
           f"{gather['bound_ms']:.6f} ms ({g_bytes} B; the plan's padded "
           f"offsets and probe indices hold {g_padded} B, not charged)")
 
-    # insert at one build_archive chunk: the archive's first 512 windows
+    # insert at one build_archive chunk: the archive's first 512 windows,
+    # on the compact operand the ingest path builds
+    from repro_torch.kernels.idl_insert import ops as ins_ops
+
     windows, fids = genome_windows(archive, cfg, INSERT_BATCH)
     windows = torch.as_tensor(np.stack(windows), device=dev)
     fids = torch.as_tensor(np.asarray(fids), device=dev)
     iplan_q = gs.insert_plan(cfg, INSERT_BATCH, shape, device=dev)
-    iplan = iplan_q.plan_runs(windows, fids)
-    # the true runs only, as ops.insert_planned passes them
-    ibids, ioffs = as_dev(dev, iplan.block_ids[:iplan.n_runs],
-                          iplan.offsets[:iplan.n_runs])
-    irpb = iplan_q.rows_per_block
+    flat = iplan_q.flat_positions(windows, fids)
+    torch.cuda.synchronize()
+    plan_s = []
+    for _ in range(6):                     # host wall, the first one warms
+        t0 = time.perf_counter()
+        cplan = ins_ops.compact_insert_plan(flat, iplan_q.block_bits,
+                                            iplan_q.inserts_per_run)
+        plan_s.append(time.perf_counter() - t0)
+    positions = cplan.positions
     copy = matrix.clone()
 
     def insert_kernel():
-        return ins_kernel.insert_planned(matrix, ibids, ioffs,
-                                         rows_per_block=irpb)
+        return ins_kernel.insert_planned(matrix, cplan)
 
     def insert_plain():
-        return ins_ref.insert_planned_ref(copy, ibids, ioffs,
-                                          rows_per_block=irpb)
+        return ins_ref.insert_planned_ref(copy, positions)
 
     insert_kernel()
     insert_plain()
     torch.cuda.synchronize()
     err = max_abs_err(matrix, copy)
     check(err == 0, "insert kernel == plain at the main path's shapes")
-    # the bound charges the runs' block ids, the sectors of offsets that
-    # hold a valid lane, and the touched words' sectors read and written
-    offs = iplan.offsets[:iplan.n_runs]
-    valid = offs >= 0
-    words = np.unique((iplan.block_ids[:iplan.n_runs].astype(np.int64)[:, None]
-                       * irpb * w + (offs >> 5))[valid])
-    i_bytes = (sector_bytes(np.arange(iplan.n_runs), 1)
-               + sector_bytes(valid_lanes(offs), 1)
-               + 2 * sector_bytes(words, 1))
+    # the bound charges the positions (8 B each, read once) and the touched
+    # words' sectors, read and written
+    pos = positions.cpu().numpy()
+    words = np.unique(pos >> 5)
+    sectors = sector_bytes(words, 1)
+    i_bytes = 8 * pos.size + 2 * sectors
     insert = {
         "name": ins_kernel.NAME, "route": "cuda",
         "source": ins_kernel.SOURCE, "replaces": ins_kernel.REPLACES,
@@ -362,14 +402,29 @@ def main_shapes_phase(cfg, archive, dev) -> list:
         "library_ms": None,
     }
     GRAPH_MS[ins_kernel.NAME] = graph_ms(insert_kernel)
+    # a control for the bound's share: as many positions, one per 32-byte
+    # sector as here, but the sectors consecutive instead of scattered
+    step = min(256, matrix.numel() // pos.size * 32)    # bits per sector
+    ordered = ins_ops.compact_insert_plan(
+        torch.arange(pos.size, dtype=torch.int64, device=dev) * step,
+        iplan_q.block_bits, iplan_q.inserts_per_run)
+    ordered_ms = graph_ms(lambda: ins_kernel.insert_planned(matrix, ordered))
+    sort_ms = cuda_ms(lambda: torch.sort(flat.reshape(-1)), 20)
     del copy
     print(f"phase 2c insert at build shapes: ok (max_abs_err {err}, "
-          f"tolerance 0) — {iplan.n_locs} bits in "
-          f"{iplan.n_runs} runs ({iplan.block_ids.shape[0]} padded, "
-          f"{iplan.n_tiles} blocks, {words.size} words); kernel "
-          f"{insert['ms']:.6f} ms, plain {insert['plain_ms']:.6f} ms, bound "
-          f"{insert['bound_ms']:.6f} ms ({i_bytes} B; the padded offsets of "
-          f"the true runs hold {offs.nbytes} B, not charged)")
+          f"tolerance 0) — {flat.numel()} targets, {cplan.n_locs} unique "
+          f"positions in {cplan.n_tiles} blocks ({cplan.n_runs} runs of <= "
+          f"{cplan.inserts_per_run}), {words.size} words; kernel "
+          f"{insert['ms']:.6f} ms (graph replay "
+          f"{GRAPH_MS[ins_kernel.NAME]:.6f} ms), plain "
+          f"{insert['plain_ms']:.6f} ms, bound {insert['bound_ms']:.6f} ms "
+          f"({i_bytes} B = 8 B x {pos.size} positions + 2 x {sectors} B "
+          f"of touched sectors); control, {pos.size} positions in "
+          f"consecutive sectors: graph replay {ordered_ms:.6f} ms; "
+          f"device_plan host wall ms "
+          f"{[round(1e3 * t, 3) for t in plan_s]}; torch.sort of the "
+          f"{flat.numel()} int64 targets {sort_ms:.6f} ms (CUDA events); "
+          f"library: no single PyTorch call")
     return [gather, insert]
 
 
@@ -395,6 +450,36 @@ def read_launches() -> dict:
     return {name: getattr(mod, attr) for name, mod, attr in _counters()}
 
 
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls of ``module.name`` while the block runs: yields a
+    one-element list holding the count."""
+    fn, calls = getattr(module, name), [0]
+
+    def wrapper(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def check_window_min_launches(launches: dict, stages: dict, extra: int,
+                              path: str) -> int:
+    """``window_min`` must launch once per MinHash: once for each timed
+    ``locations`` stage (insert and query batches) and each of the path's
+    ``extra`` direct location calls. Returns that count."""
+    want = (stages["insert.locations"]["batches"]
+            + stages["query.locations"]["batches"] + extra)
+    check(launches["window_min"] == want,
+          f"window_min launched {launches['window_min']} times on the "
+          f"{path}, once per MinHash ({want})")
+    return want
+
+
 def stage_means(snap, ingest_s: float, batch_ms: list) -> dict:
     """Mean host ms per batch of each planner stage (the package's
     ``planner.stage_ms`` timers) and of whole batches."""
@@ -405,7 +490,7 @@ def stage_means(snap, ingest_s: float, batch_ms: list) -> dict:
         labels = obs_metrics.parse_label_key(key)
         stages[f"{labels['op']}.{labels['stage']}"] = {
             "mean_ms": hist["sum"] / hist["count"], "batches": hist["count"]}
-    n_ingest = stages["insert.host_plan"]["batches"]
+    n_ingest = stages["insert.launch"]["batches"]
     stages["insert.whole_batch"] = {
         "mean_ms": 1e3 * ingest_s / n_ingest, "batches": n_ingest}
     stages["query.whole_batch"] = {
@@ -419,6 +504,7 @@ def main_path_phase(cfg, archive, dev) -> dict:
     read just after; then the mean host time of each planner stage over
     that run. Returns the launch counts."""
     from repro_torch.index import BitSlicedIndex, build_archive
+    from repro_torch.kernels.idl_insert import ops as ins_ops
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import GeneSearchService, ServiceConfig
 
@@ -428,12 +514,14 @@ def main_path_phase(cfg, archive, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    eng = build_archive(eng, archive, read_len=cfg.read_len,
-                        chunk_reads=INSERT_BATCH, backend="idl_insert")
+    with counting_calls(ins_ops, "plan_insert_runs") as planner:
+        eng = build_archive(eng, archive, read_len=cfg.read_len,
+                            chunk_reads=INSERT_BATCH, backend="idl_insert")
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     check(read_launches()["insert_planned"] > 0,
           "insert_planned launched during ingest")
+    check(planner[0] == 0, "no numpy run planner on the CUDA ingest path")
 
     svc = GeneSearchService(eng, ServiceConfig(
         theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
@@ -468,13 +556,21 @@ def main_path_phase(cfg, archive, dev) -> dict:
         check(launches[name] > 0, f"{name} launched on the bit-sliced path")
     check(correct == total, f"recall {correct}/{total} is total")
     snap = obs_metrics.DEFAULT.snapshot()
+    stages = stage_means(snap, ingest_s, batch_ms)
+    minhashes = check_window_min_launches(launches, stages, 0,
+                                          "bit-sliced path")
     tile_q = obs_metrics.counter_total(
         snap, "locality.planned_tile_bytes", {"op": "query"})
     tile_i = obs_metrics.counter_total(
         snap, "locality.planned_tile_bytes", {"op": "insert"})
+    runs_i = obs_metrics.counter_total(
+        snap, "locality.probe_runs", {"op": "insert"})
     print(f"phase 3 main path: ok — {cfg.m}x{cfg.file_words} int32 index "
           f"({eng.state.nbytes} B) over {cfg.n_files} files x {GENOME_LEN} "
-          f"bases; ingest {ingest_s:.3f} s; serve {SERVE_BATCHES} x "
+          f"bases; ingest {ingest_s:.3f} s (numpy run planner calls "
+          f"{planner[0]}; {runs_i:.0f} planner runs counted from the compact "
+          f"plans); window_min once per MinHash ({minhashes}); serve "
+          f"{SERVE_BATCHES} x "
           f"{SERVE_BATCH} reads, batch ms {[round(b, 3) for b in batch_ms]}; "
           f"launches {json.dumps(launches)}; recall {correct}/{total}; mean "
           f"extra matched files {extra / total:.4f}; first batch == torch "
@@ -482,7 +578,6 @@ def main_path_phase(cfg, archive, dev) -> dict:
           f"{torch.cuda.max_memory_allocated()} B; "
           f"locality.planned_tile_bytes query {tile_q:.0f} insert "
           f"{tile_i:.0f}")
-    stages = stage_means(snap, ingest_s, batch_ms)
     print("phase 3 where the time goes (host ms per batch, means over the "
           "main path's run): " + json.dumps(stages, sort_keys=True))
     return launches
@@ -490,15 +585,35 @@ def main_path_phase(cfg, archive, dev) -> dict:
 
 def window_min_phase(dev) -> dict:
     """Phase 2d: ``window_min`` against its plain version, bit for bit, at
-    small shapes and at the rolling MinHash's shapes, timed there beside
-    its byte bound and ``unfold(-1, w, 1).amin(-1)``. Returns its JSON
-    record (at the serve shape, (256, 215))."""
+    small shapes in its plain, DOPH, exact (η rows) and unsigned forms, and
+    at the rolling MinHash's shapes, (256 | 512, 215) × η 4, in both forms
+    the paths launch: the 32-bit path's DOPH lanes (timed beside its byte
+    bound) and the 64-bit path's unsigned DOPH hashes, with the exact form
+    signed beside ``unfold(-1, w, 1).amin(-1)`` on the same input (the same
+    function) and unsigned; then the unsigned DOPH form over a whole
+    genome's sub-kmers. Returns its JSON record (32-bit DOPH form at the
+    serve shape, (256, 215))."""
     from repro_torch.kernels.window_min import kernel as wm_kernel
     from repro_torch.kernels.window_min import ref as wm_ref
 
     rng = np.random.default_rng(1)
-    flip = -(1 << 63)
-    cases = []
+    eta = 4
+    cases = 0
+
+    def same(a, w, what, **kw):
+        got = wm_kernel.window_min(a, w, **kw)
+        check(torch.equal(got, wm_ref.window_min_binned_ref(a, w=w, **kw)),
+              f"window_min {what} {a.dtype} {tuple(a.shape)} w={w} == plain")
+        return 1
+
+    def bin3_empty(h, shift):
+        """``h`` with every hash of DOPH bin 3 of 4 moved to bin 2."""
+        top2 = 2 * shift - 2                     # bins of 4: the top bits
+        return torch.where(wm_ref.doph_bins(h, eta, shift) == 3,
+                           h ^ (1 << top2), h)
+
+    lanes_doph = dict(n_bins=eta, bin_shift=16, fill=0xFFFFFFFF)
+    u64_doph = dict(n_bins=eta, bin_shift=32, fill=-1, unsigned=True)
     for w in (1, 2, 16, 31):
         for n in (w, 200, 255, 1000, 1283):        # < and not a multiple of
             lanes = rng.integers(0, 1 << 32, size=(3, n))   # the 256 tile
@@ -506,41 +621,92 @@ def window_min_phase(dev) -> dict:
             h64 = rng.integers(-2 ** 63, 2 ** 63 - 1, size=(3, n),
                                dtype=np.int64)
             h64[:, ::4] = -1                                 # UINT64_MAX
-            cases += [lanes, h64 ^ flip,
-                      rng.integers(-2 ** 31, 2 ** 31, size=(2, n)
-                                   ).astype(np.int32),
-                      rng.normal(size=(2, n)).astype(np.float32)]
-            for a in cases[-4:]:
-                a = torch.as_tensor(a, device=dev)
-                got = wm_kernel.window_min(a, w)
-                check(torch.equal(got, wm_ref.window_min_ref(a, w=w)),
-                      f"window_min {a.dtype} {tuple(a.shape)} w={w} == plain")
+            i32 = rng.integers(-2 ** 31, 2 ** 31, size=(2, n)).astype(np.int32)
+            f32 = rng.normal(size=(2, n)).astype(np.float32)
+            lanes, h64, i32, f32 = as_dev(dev, lanes, h64, i32, f32)
+            for a in (lanes, h64, i32, f32):
+                cases += same(a, w, "plain")
+            cases += same(h64, w, "unsigned", unsigned=True)
+            cases += same(bin3_empty(lanes, 16), w, "doph", **lanes_doph)
+            cases += same(bin3_empty(h64, 32), w, "doph unsigned", **u64_doph)
+            cases += same(torch.stack([h64, h64.flip(-1)], -2), w,
+                          "exact unsigned", unsigned=True)
     torch.cuda.synchronize()
     timed = {}
+    w = 16
     for rows in (SERVE_BATCH, INSERT_BATCH):
-        a = torch.as_tensor(rng.integers(0, 1 << 32, size=(rows, 215)),
+        n = 215
+        h = torch.as_tensor(rng.integers(0, 1 << 32, size=(rows, n)),
                             device=dev)
-        w = 16
-        got = wm_kernel.window_min(a, w)
-        lib = a.unfold(-1, w, 1).amin(-1)
-        err = max_abs_err(got, wm_ref.window_min_ref(a, w=w))
-        check(err == 0 and torch.equal(got, lib),
-              f"window_min at ({rows}, 215) == plain")
-        nbytes = a.numel() * 8 + got.numel() * 8
+        got = wm_kernel.window_min(h, w, **lanes_doph)
+        err = max_abs_err(got, wm_ref.window_min_binned_ref(h, w=w,
+                                                            **lanes_doph))
+        h64 = torch.as_tensor(rng.integers(-2 ** 63, 2 ** 63 - 1, size=(
+            rows, n), dtype=np.int64), device=dev)
+        got64 = wm_kernel.window_min(h64, w, **u64_doph)
+        err64 = max_abs_err(got64, wm_ref.window_min_binned_ref(
+            h64, w=w, **u64_doph))
+        stacked = torch.as_tensor(rng.integers(0, 1 << 32, size=(rows, eta, n)),
+                                  device=dev)
+        exact = wm_kernel.window_min(stacked, w)
+        stacked64 = torch.as_tensor(rng.integers(
+            -2 ** 63, 2 ** 63 - 1, size=(rows, eta, n), dtype=np.int64),
+            device=dev)
+        exact64 = wm_kernel.window_min(stacked64, w, unsigned=True)
+        check(err == 0 and err64 == 0 and torch.equal(
+            exact, stacked.unfold(-1, w, 1).amin(-1)) and torch.equal(
+            exact64, wm_ref.window_min_binned_ref(stacked64, w=w,
+                                                  unsigned=True)),
+              f"window_min at ({rows}, 215) x η {eta} == plain (DOPH lanes, "
+              f"DOPH unsigned 64-bit, exact, exact unsigned)")
+        # the bound charges the hashes read once and the η minima written
+        # once: the bins are a function of the hashes, derived in the kernel
+        nbytes = h.numel() * 8 + got.numel() * 8
         timed[rows] = {
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: wm_kernel.window_min(a, w), 200),
-            "plain_ms": cuda_ms(lambda: wm_ref.window_min_ref(a, w=w), 50),
+            "ms": cuda_ms(lambda: wm_kernel.window_min(h, w, **lanes_doph),
+                          200),
+            "plain_ms": cuda_ms(lambda: wm_ref.window_min_binned_ref(
+                h, w=w, **lanes_doph), 50),
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-            "library_ms": cuda_ms(lambda: a.unfold(-1, w, 1).amin(-1), 200),
-            "graph_ms": graph_ms(lambda: wm_kernel.window_min(a, w)),
+            "library_ms": None,
+            "graph_ms": graph_ms(
+                lambda: wm_kernel.window_min(h, w, **lanes_doph)),
+            "doph_u64_form": {
+                "max_abs_err": err64,
+                "graph_ms": graph_ms(
+                    lambda: wm_kernel.window_min(h64, w, **u64_doph))},
+            "exact_form": {
+                "ms": cuda_ms(lambda: wm_kernel.window_min(stacked, w), 200),
+                "graph_ms": graph_ms(
+                    lambda: wm_kernel.window_min(stacked, w)),
+                "unfold_amin_ms": cuda_ms(
+                    lambda: stacked.unfold(-1, w, 1).amin(-1), 200),
+                "unfold_amin_graph_ms": graph_ms(
+                    lambda: stacked.unfold(-1, w, 1).amin(-1)),
+                "bound_ms": 1e3 * 8 * (stacked.numel() + exact.numel())
+                / HBM_BYTES_PER_S},
         }
+    # one genome's sub-kmers, as phase 4's whole-genome locations see them
+    genome_h = bin3_empty(torch.as_tensor(rng.integers(
+        -2 ** 63, 2 ** 63 - 1, size=FLAT_GENOME_LEN, dtype=np.int64),
+        device=dev), 32)
+    cases += same(genome_h, w, "doph unsigned, a whole genome", **u64_doph)
     print(f"phase 2d window_min: ok (kernel == plain, tolerance 0: "
-          f"bit-exact) — {len(cases)} small cases (w 1/2/16/31, int64 "
-          f"lanes with bit 31 set, sign-flipped 64-bit, int32, float32); "
-          f"at (rows, 215) int64, w 16: " + json.dumps(
-              {f"({r}, 215)": t for r, t in timed.items()}))
+          f"bit-exact) — {cases} small and whole-genome cases (w 1/2/16/31; "
+          f"plain int64 lanes with bit 31 set, sign-flipped 64-bit, int32, "
+          f"float32; unsigned int64; DOPH lanes and unsigned 64-bit with an "
+          f"empty bin; exact unsigned; unsigned 64-bit DOPH over "
+          f"{FLAT_GENOME_LEN} hashes); one launch per MinHash at (rows, 215) "
+          f"int64, w 16, η {eta} (DOPH lanes, timed, and unsigned 64-bit "
+          f"hashes; exact form beside unfold(-1, w, 1).amin(-1) on the same "
+          f"(rows, η, 215) input, and unsigned): "
+          + json.dumps({f"({r}, 215)": t for r, t in timed.items()}))
     GRAPH_MS[wm_kernel.NAME] = timed[SERVE_BATCH].pop("graph_ms")
+    GRAPH_MS["unfold.amin"] = timed[SERVE_BATCH]["exact_form"][
+        "unfold_amin_graph_ms"]
+    timed[SERVE_BATCH].pop("exact_form")
+    timed[SERVE_BATCH].pop("doph_u64_form")
     return {"name": wm_kernel.NAME, "route": "cuda",
             "source": wm_kernel.SOURCE, "replaces": wm_kernel.REPLACES,
             **timed[SERVE_BATCH]}
@@ -675,13 +841,25 @@ def flat_kernels_phase(cfg, g, dev) -> list:
         "bound_ms": 1e3 * i_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
         "library_ms": None,
     }
-    GRAPH_MS[ins_kernel.ROUNDS_NAME] = graph_ms(rounds_kernel)
+    # the wrapper flattens the lanes (the mask's count) and reads their
+    # largest position from the device, so the host waits twice and a CUDA
+    # graph cannot hold it: the graph replays the kernel's launch alone over
+    # the flattened lanes, and the flattening is timed apart
+    lanes_pos = ins_kernel.lane_positions(ibids, ioffs, cfg.L)
+    GRAPH_MS[ins_kernel.ROUNDS_NAME] = graph_ms(
+        lambda: ins_kernel._launch(ins_kernel.ROUNDS_NAME, words, lanes_pos))
+    flatten_ms = cuda_ms(
+        lambda: ins_kernel.lane_positions(ibids, ioffs, cfg.L), 20)
     print(f"phase 2e insert_with_plan at build shapes: ok (max_abs_err "
           f"{err}, tolerance 0) — {iplan.n_locs} locations in "
           f"{len(iplan.rounds)} rounds of {len(rbids)} runs (block 5 in "
-          f"{rounds_of_hot} rounds), {touched.size} words; kernel (shared "
-          f"insert_planned.cu, one launch for all rounds) {rounds['ms']:.6f} "
-          f"ms, plain (round by round) {rounds['plain_ms']:.6f} ms, bound "
+          f"{rounds_of_hot} rounds), {lanes_pos.numel()} valid lanes, "
+          f"{touched.size} words; kernel (shared insert_planned.cu, one "
+          f"launch for all rounds over their valid lanes, flattened on the "
+          f"device) {rounds['ms']:.6f} ms with the wrapper (graph replay of "
+          f"the launch alone {GRAPH_MS[ins_kernel.ROUNDS_NAME]:.6f} ms; the "
+          f"flattening {flatten_ms:.6f} ms, CUDA events), plain (round by "
+          f"round) {rounds['plain_ms']:.6f} ms, bound "
           f"{rounds['bound_ms']:.6f} ms ({i_bytes} B; the padded offsets hold "
           f"{roffs.nbytes} B, not charged); library: no single PyTorch call")
     return [probe, rounds]
@@ -704,10 +882,12 @@ def flat_path_phase(cfg, g, dev) -> dict:
     reset_launches()
     eng = PackedBloomIndex.build(cfg, "idl", device=dev)
     t0 = time.perf_counter()
-    eng = build_archive(eng, [(0, g)], read_len=FLAT_READ_LEN,
-                        chunk_reads=INSERT_BATCH, backend="idl_insert")
+    with counting_calls(ins_ops, "plan_insert_runs") as planner:
+        eng = build_archive(eng, [(0, g)], read_len=FLAT_READ_LEN,
+                            chunk_reads=INSERT_BATCH, backend="idl_insert")
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
+    check(planner[0] == 0, "no numpy run planner on the CUDA ingest path")
 
     # the legacy path: the whole genome's locations, planned in rounds
     t0 = time.perf_counter()
@@ -755,6 +935,10 @@ def flat_path_phase(cfg, g, dev) -> dict:
     for name, count in launches.items():
         check(count > 0, f"{name} launched on the flat-filter path")
     snap = obs_metrics.DEFAULT.snapshot()
+    stages = stage_means(snap, ingest_s, batch_ms)
+    # direct location calls: the legacy path's and each batch's probe plan
+    minhashes = check_window_min_launches(launches, stages,
+                                          1 + SERVE_BATCHES, "flat path")
     runs = {op: (obs_metrics.counter_total(snap, "locality.probe_runs",
                                            {"op": op}),
                  obs_metrics.counter_total(snap, "locality.probes",
@@ -763,7 +947,8 @@ def flat_path_phase(cfg, g, dev) -> dict:
     print(f"phase 4 flat IDL Bloom filter: ok — m {cfg.m} bits "
           f"({eng.state.nbytes} B), L {cfg.L}, η {cfg.eta}, k {cfg.k}, t "
           f"{cfg.t}; genome {len(g)} bases (uncut); ingest {ingest_s:.3f} s "
-          f"in batches of {INSERT_BATCH} reads; legacy "
+          f"in batches of {INSERT_BATCH} reads (numpy run planner calls "
+          f"{planner[0]}); window_min once per MinHash ({minhashes}); legacy "
           f"path: locations {legacy_s[0]:.3f} s, plan_insert_rounds "
           f"{legacy_s[1]:.3f} s ({len(plan.rounds)} rounds, {plan.n_tiles} "
           f"runs, {plan.n_locs} locations), insert_with_plan "
@@ -780,7 +965,6 @@ def flat_path_phase(cfg, g, dev) -> dict:
           f"{runs['query'][0]:.0f}/{runs['query'][1]:.0f}; launches "
           f"{json.dumps(launches)}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B")
-    stages = stage_means(snap, ingest_s, batch_ms)
     print("phase 4 where the time goes (host ms per batch, means over the "
           "flat path's run; the query stages also time the query_batch "
           "checks): " + json.dumps(stages, sort_keys=True))

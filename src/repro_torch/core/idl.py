@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import hashing, kmers, minhash
+from repro_torch.kernels.window_min import ops as window_min_ops
 
 # seed salts (keep ρ₁, ρ₂ and MinHash streams independent)
 _SALT_ANCHOR = 0xA17C
@@ -180,12 +181,10 @@ def locations(cfg: IDLConfig, codes: torch.Tensor, scheme: str
 def _doph32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
     """(..., η, n_kmers) densified one-permutation rolling MinHash."""
     h = hashing.mix32((hashing.mul32(subk, 0x9E3779B9) + _SALT_MH) & _M32)
-    bins = ((h >> 16) * cfg.eta) >> 16
+    # each lane's DOPH bin, ((h >> 16) * η) >> 16, is derived in the kernel
     empty = minhash.FILL32
-    mh = torch.stack([
-        minhash.sliding_window_min(torch.where(bins == j, h, empty), cfg.w)
-        for j in range(cfg.eta)
-    ], dim=-2)
+    mh = window_min_ops.window_min(h, cfg.w, n_bins=cfg.eta, bin_shift=16,
+                                   fill=empty)
     # rotation densification: an empty bin borrows from the next non-empty
     # bin, offset by a multiple of the golden constant
     for off in range(1, cfg.eta):
@@ -200,11 +199,11 @@ def _doph32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
 
 def _exact32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
     """(..., η, n_kmers) η independent rolling MinHashes."""
-    return torch.stack([
-        minhash.sliding_window_min(
-            hashing.mix32((hashing.mul32(subk, 2 * s + 1) + s) & _M32), cfg.w)
+    h = torch.stack([
+        hashing.mix32((hashing.mul32(subk, 2 * s + 1) + s) & _M32)
         for s in cfg.exact_seeds()
     ], dim=-2)
+    return window_min_ops.window_min(h, cfg.w)
 
 
 def idl_locations_rolling32(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:

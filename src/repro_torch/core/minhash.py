@@ -1,16 +1,17 @@
 """MinHash, rolling (sliding-window) MinHash, densified one-permutation hashing.
 
 Port of :mod:`repro.core.minhash`. Stride-1 kmers have contiguous sub-kmer
-windows, so a rolling MinHash is a sliding-window minimum
-(:func:`sliding_window_min`: the ``window_min`` CUDA kernel on a CUDA
-tensor, its Gil–Werman plain version on a CPU one). Every function works
-along the last axis of any-rank input, so a batch of reads takes one pass;
-the η repetitions sit on the axis before it, ``(..., η, n_kmers)``.
+windows, so a rolling MinHash is a sliding-window minimum (the
+``window_min`` CUDA kernel on a CUDA tensor, its Gil–Werman plain version
+on a CPU one), one launch per MinHash: the η masked DOPH minima, or the η
+exact repetitions, come out of one call. Every function works along the
+last axis of any-rank input, so a batch of reads takes one pass; the η
+repetitions sit on the axis before it, ``(..., η, n_kmers)``.
 
 The 64-bit functions carry ``uint64`` hashes in ``int64`` (see
-:mod:`repro_torch.core.hashing`). Unsigned order is signed order after the
-sign bit is flipped, so each minimum flips it before and after
-(:data:`SIGN`); the minimum itself knows nothing of uint64.
+:mod:`repro_torch.core.hashing`). The rolling minima compare them in
+unsigned order (the kernel's ``unsigned`` flag); elsewhere unsigned order
+is signed order after the sign bit is flipped (:data:`SIGN`).
 :data:`UINT64_MAX`, the empty-bin sentinel, is ``-1``.
 """
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.kernels.window_min import ops as window_min_ops
+from repro_torch.kernels.window_min import ref as window_min_ref
 
 # Largest 32-bit lane value: the "empty DOPH bin" sentinel of the 32-bit
 # location path.
@@ -30,6 +32,8 @@ FILL32 = 0xFFFFFFFF
 UINT64_MAX = -1
 # XOR with the sign bit maps unsigned order onto signed order
 SIGN = -(1 << 63)
+# A 64-bit hash's DOPH bin is the Lemire reduction of the bits above this
+BIN_SHIFT = 32
 # Offset constant used by rotation densification so borrowed values do not
 # collide with native values of the donor bin.
 _DENSIFY_C = 0x9E3779B97F4A7C15
@@ -46,11 +50,6 @@ def sliding_window_min(a: torch.Tensor, w: int) -> torch.Tensor:
     return window_min_ops.window_min(a, w)
 
 
-def _umin_window(h: torch.Tensor, w: int) -> torch.Tensor:
-    """Sliding minimum of int64-carried uint64 values in unsigned order."""
-    return sliding_window_min(h ^ SIGN, w) ^ SIGN
-
-
 def _umin(h: torch.Tensor, dim: int) -> torch.Tensor:
     """Minimum over ``dim`` of int64-carried uint64 values, unsigned order."""
     return (h ^ SIGN).amin(dim) ^ SIGN
@@ -59,13 +58,14 @@ def _umin(h: torch.Tensor, dim: int) -> torch.Tensor:
 def minhash_exact(subk: torch.Tensor, w: int, seeds: Sequence[int]
                   ) -> torch.Tensor:
     """η independent rolling MinHashes: ``(..., η, n_sub - w + 1)``."""
-    return torch.stack(
-        [_umin_window(hashing.hash64(subk, s), w) for s in seeds], dim=-2)
+    h = torch.stack([hashing.hash64(subk, s) for s in seeds], dim=-2)
+    return window_min_ops.window_min(h, w, unsigned=True)
 
 
 def _bins(h: torch.Tensor, eta: int) -> torch.Tensor:
-    """DOPH bin of each hash: Lemire reduction of its top 32 bits."""
-    return (hashing.lshr(h, 32) * eta) >> 32
+    """DOPH bin of each hash: Lemire reduction of its top 32 bits (what the
+    ``window_min`` kernel derives with ``bin_shift=BIN_SHIFT``)."""
+    return window_min_ref.doph_bins(h, eta, BIN_SHIFT)
 
 
 def doph_minhash(subk: torch.Tensor, w: int, eta: int, seed: int = 0x0D0F
@@ -73,12 +73,9 @@ def doph_minhash(subk: torch.Tensor, w: int, eta: int, seed: int = 0x0D0F
     """Densified one-permutation rolling MinHash: one hash evaluation per
     sub-kmer yields η repetitions per kmer, ``(..., η, n_sub - w + 1)``."""
     h = hashing.hash64(subk, seed)
-    bins = _bins(h, eta)
-    mh = torch.stack([
-        _umin_window(torch.where(bins == j, h, UINT64_MAX), w)
-        for j in range(eta)
-    ], dim=-2)                      # UINT64_MAX marks empty bins
-    return densify_rotation(mh)
+    mh = window_min_ops.window_min(h, w, n_bins=eta, bin_shift=BIN_SHIFT,
+                                   fill=UINT64_MAX, unsigned=True)
+    return densify_rotation(mh)     # UINT64_MAX marks empty bins
 
 
 def densify_rotation(mh: torch.Tensor) -> torch.Tensor:

@@ -1,31 +1,36 @@
-// insert_planned: the ingest side's planned scatter-OR, in place.
+// insert_planned: the ingest side's scatter-OR of single bits, in place.
 //
-// Replaces the TPU kernel repro/kernels/idl_insert/kernel.py::insert_runs
-// (body _insert_runs_kernel, helper _bit_image) together with the tile
-// write-back repro/kernels/idl_insert/ref.py::apply_tiles_to_matrix. For
-// each run r of an InsertRunPlan and each valid lane c (offset o >= 0), it
-// sets bit (o & 31) of word block_ids[r] * rows_per_block * W + (o >> 5)
-// of the packed (n_rows, W) matrix.
+// Replaces the TPU kernels repro/kernels/idl_insert/kernel.py::insert_runs
+// (body _insert_runs_kernel, with its tile write-back
+// ref.py::apply_tiles_to_matrix) and ::insert_round (with
+// ref.py::apply_insert_to_words). For every position p >= 0 of a 1-D int64
+// array it sets bit (p & 31) of word p >> 5 of the packed int32 words,
+// viewed flat: a bit-sliced (n_rows, W) matrix at (row * W + word) * 32 +
+// bit, or a flat filter at its bit location. Negative positions (masked
+// targets, a plan's pad lanes) are skipped.
 //
 // What bounds it on an H100: bytes, and the latency of scattered
-// read-modify-writes. A 512-read batch sets ~370k bits spread over a matrix
-// far larger than L2 (one 32-byte sector per bit, read and written); the
-// plan pads every run to C lanes with -1, but a run holds about three bits,
-// one 32-byte sector of offsets.
+// read-modify-writes. A 512-read batch of the bit-sliced index sets ~410k
+// bits over 2^31 words (8 GiB, 160 times the L2), almost all in distinct
+// words: each bit costs one 32-byte sector read and written, and its
+// position 8 bytes read once.
 //
-// What the design does about it: one warp per run. Pad lanes trail the
-// valid ones in every run (the planner fills a run from lane 0), so the warp
-// reads the run's first 8 offsets (one sector), then 32 at a time, and stops
-// at the first step that holds a pad lane (a ballot). Each lane issues one
-// atomicOr for a valid offset, so the only matrix traffic is the touched
-// words. The caller passes only the true runs, not the pow2 pad runs. The
-// TPU form does
-// not carry over: it returns one 64 KiB tile per touched block (about the
-// whole 8 GiB matrix at the full configuration) and relies on the grid
-// running in order ("the first run of a slot initialises the tile"), while
-// CUDA blocks run in no order. Offsets are unique after the planner's
-// np.unique, but two lanes can still set different bits of one word, so
-// the OR is atomic. Word offsets are 64-bit: 2^26 x 32 words is 2^31.
+// What the design does about it: one thread per position of a compact
+// operand, with no run plan, pad lanes or tiles (a run plan's valid lanes
+// are flattened into positions on the device by the caller). The TPU needed
+// a plan to bring 64 KiB tiles into VMEM, one block id per grid step, and
+// wrote whole tiles back; an atomicOr into device memory needs neither a
+// tile nor an order. On the main path the positions arrive sorted and
+// unique (the caller's torch.unique), so the bits of one word are adjacent:
+// a thread whose predecessor names another word leads its word, ORs the
+// masks of the followers after it, and issues one atomicOr whose result is
+// unused (a fire-and-forget reduction); a follower issues nothing.
+// Neighbours' positions come from warp shuffles, so a thread loads one
+// position, and only lanes 0 and 31 load one more. The kernel stays right
+// for any order and for duplicates: every maximal stretch of adjacent
+// same-word positions has exactly one leader, and the OR is atomic because
+// two leaders (unsorted input) or two launches can still touch one word.
+// Word offsets are 64-bit: bit-sliced positions reach 2^36.
 
 #include <cstdint>
 
@@ -33,48 +38,50 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kFirstSpan = 8;  // lanes of a run's first step: one sector
+constexpr int kThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-insert_planned_kernel(unsigned* __restrict__ matrix,
-                      const int32_t* __restrict__ block_ids,
-                      const int32_t* __restrict__ offsets, int n_runs,
-                      int inserts_per_run, int64_t block_words) {
+__global__ void __launch_bounds__(kThreads)
+insert_planned_kernel(unsigned* __restrict__ words,
+                      const long long* __restrict__ pos, long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const int run = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (run >= n_runs) return;
-  unsigned* tile = matrix + static_cast<int64_t>(block_ids[run]) * block_words;
-  const int32_t* offs = offsets + static_cast<int64_t>(run) * inserts_per_run;
-  // steps of 8, then 24, then 32 lanes: each after the first is aligned
-  for (int c0 = 0, span = kFirstSpan; c0 < inserts_per_run;
-       c0 += span, span = 32 - (c0 & 31)) {
-    const int c = c0 + lane;
-    const int o = lane < span && c < inserts_per_run ? offs[c] : -1;
-    if (o >= 0) atomicOr(tile + (o >> 5), 1u << (o & 31));
-    // a pad lane (or the run's end) in this step: nothing valid follows
-    if (__ballot_sync(kFullMask, o >= 0) !=
-        (span == 32 ? kFullMask : (1u << span) - 1u))
-      break;
+  const long long p = i < n ? pos[i] : -1;
+  // the neighbours' positions, from the warp or (at its edges) memory;
+  // every lane takes part in both shuffles
+  long long prev = __shfl_up_sync(kFullMask, p, 1);
+  long long next = __shfl_down_sync(kFullMask, p, 1);
+  if (lane == 0) prev = i > 0 && i <= n ? pos[i - 1] : -1;
+  if (lane == 31) next = i + 1 < n ? pos[i + 1] : -1;
+  // a negative position names a negative word, never a real one
+  const long long word = p >> 5;
+  if (p < 0 || (prev >> 5) == word) return;  // skipped, or a follower
+  unsigned mask = 1u << static_cast<unsigned>(p & 31);
+  for (long long j = i + 1; (next >> 5) == word;) {  // next == pos[j]
+    mask |= 1u << static_cast<unsigned>(next & 31);
+    if (++j >= n) break;
+    next = pos[j];
   }
+  atomicOr(words + word, mask);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int insert_planned(void* matrix, const void* block_ids,
-                              const void* offsets, int n_runs,
-                              int inserts_per_run, long long block_words,
-                              void* stream) {
-  if (n_runs > 0) {
-    const int blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    insert_planned_kernel<<<blocks, kWarpsPerBlock * 32, 0,
+// Sets the bits of n flat int64 positions in the int32 words, on `stream`;
+// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// count the grid cannot cover. The caller has checked that every position
+// lies inside the words.
+extern "C" int insert_planned(void* words, const void* positions,
+                              long long n, void* stream) {
+  if (n < 0 || (n + kThreads - 1) / kThreads > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    insert_planned_kernel<<<blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<unsigned*>(matrix),
-        static_cast<const int32_t*>(block_ids),
-        static_cast<const int32_t*>(offsets), n_runs, inserts_per_run,
-        static_cast<int64_t>(block_words));
+        static_cast<unsigned*>(words),
+        static_cast<const long long*>(positions), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

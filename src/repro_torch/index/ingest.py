@@ -6,9 +6,11 @@ scatter-OR of single bits into a packed ``(n_rows, W)`` int32 bit-matrix,
 described by ``(row, word_col, bit)`` targets. Backends:
 
 * ``"torch"``      — the plain sort-dedup scatter (the port of ``"jnp"``);
-* ``"idl_insert"`` — the host-side sorted run planner + the CUDA
-  ``insert_planned`` kernel, one launch per batch (on a CPU matrix, the
-  kernel's plain version).
+* ``"idl_insert"`` — the compact plan built on the matrix's device (the
+  batch's sorted unique bit positions and the reference planner's
+  counters) + the CUDA ``insert_planned`` kernel, one launch per batch (on
+  a CPU matrix, the kernel's plain version). The reference's numpy run
+  planner stays as :meth:`InsertPlan.plan_runs`, off this path.
 
 Both update the matrix **in place** (the reference donates instead);
 ``donate=False`` scatters into a clone and leaves the input untouched.
@@ -96,18 +98,37 @@ class InsertPlan:
             raise ValueError(f"unknown insert kind {self.kind!r}")
         return row.reshape(-1), wc.reshape(-1), bit.reshape(-1)
 
-    def plan_runs(self, reads: torch.Tensor, aux: Optional[torch.Tensor] = None):
-        """Host-side sorted/deduplicated run plan (one kernel launch)."""
-        t0 = time.perf_counter()
+    def flat_positions(self, reads: torch.Tensor,
+                       aux: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The batch's flat int64 bit positions ``(row * W + word) * 32 +
+        bit`` on the reads' device; -1 (masked) for a row past the matrix,
+        as the reference masks them."""
         row, wc, bit = self.targets(reads, aux)
-        flat = ((row * self.row_words + wc) * 32 + bit).cpu().numpy()
+        flat = (row * self.row_words + wc) * 32 + bit
+        return torch.where(row < self.matrix_shape[0], flat, -1)
+
+    def plan_runs(self, reads: torch.Tensor, aux: Optional[torch.Tensor] = None):
+        """The reference's host-side sorted/deduplicated run plan (numpy;
+        kept for parity, off the ingest path)."""
+        return ins_ops.plan_insert_runs(
+            self.flat_positions(reads, aux).cpu().numpy(),
+            block_bits=self.block_bits,
+            inserts_per_run=self.inserts_per_run,
+        )
+
+    def compact_plan(self, reads: torch.Tensor,
+                     aux: Optional[torch.Tensor] = None):
+        """The compact plan on the reads' device (what ``idl_insert``
+        executes); times its ``locations`` and ``device_plan`` stages."""
+        t0 = time.perf_counter()
+        flat = self.flat_positions(reads, aux)
         t0 = query.record_stage("insert", "locations", t0)
-        rplan = ins_ops.plan_insert_runs(
+        cplan = ins_ops.compact_insert_plan(
             flat, block_bits=self.block_bits,
             inserts_per_run=self.inserts_per_run,
         )
-        query.record_stage("insert", "host_plan", t0)
-        return rplan
+        query.record_stage("insert", "device_plan", t0)
+        return cplan
 
     def run_dma_bytes(self, rplan) -> int:
         """Tile bytes the plan covers (read + write per touched block)."""
@@ -137,16 +158,15 @@ class InsertPlan:
         if backend == "torch":
             packed.scatter_or_matrix(mat, *self.targets(reads, aux))
         elif backend == "idl_insert":
-            rplan = self.plan_runs(reads, aux)
-            if rplan is not None:
+            cplan = self.compact_plan(reads, aux)
+            if cplan is not None:
                 query.record_locality(
                     scheme=self.scheme, op="insert",
-                    tile_bytes=self.run_dma_bytes(rplan),
-                    n_runs=rplan.n_runs, n_probes=int(rplan.n_locs),
-                    run_lengths=rplan.run_lengths)
+                    tile_bytes=cplan.dma_bytes, n_runs=cplan.n_runs,
+                    n_probes=cplan.n_locs, run_lengths=cplan.run_lengths)
             t0 = time.perf_counter()
-            ins_ops.insert_planned(mat, rplan)
-            query.record_stage("insert", "upload_and_launch", t0)
+            ins_ops.insert_planned(mat, cplan)
+            query.record_stage("insert", "launch", t0)
         else:
             raise ValueError(
                 f"unknown ingest backend {backend!r} (want one of {BACKENDS})")

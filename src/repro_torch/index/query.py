@@ -43,7 +43,9 @@ def record_locality(*, scheme: str, op: str, tile_bytes: int, n_runs: int,
     planned backends (``idl_probe`` / ``idl_insert``).
 
     The scalar counters are exact on every batch; the run-length histogram
-    is fed from every :data:`_HIST_SAMPLE`-th batch per (scheme, op)."""
+    is fed from every :data:`_HIST_SAMPLE`-th batch per (scheme, op).
+    ``run_lengths`` is an array, or a callable that returns one, called
+    only on those batches (the compact insert plan builds it on demand)."""
     reg = obs_metrics.DEFAULT
     if not reg.enabled:
         return
@@ -63,7 +65,8 @@ def record_locality(*, scheme: str, op: str, tile_bytes: int, n_runs: int,
     c_probes.inc(n_probes)
     c_batches.inc()
     if int(c_batches.value) % _HIST_SAMPLE == 1 or _HIST_SAMPLE == 1:
-        h_runs.observe_array(run_lengths)
+        h_runs.observe_array(run_lengths() if callable(run_lengths)
+                             else run_lengths)
 
 
 _LOCALITY_HANDLES: dict = {}
@@ -74,11 +77,15 @@ def record_stage(op: str, stage: str, t0: float) -> float:
     reading) to the ``planner.stage_ms`` histogram of (op, stage); returns
     the current reading, the next stage's ``t0``.
 
-    The planned backends time three stages of every batch: ``locations``
-    (hashing on the device and the copy to the host, which waits for it),
-    ``host_plan`` (the numpy planner) and ``upload_and_launch`` (the plan
-    arrays to the device and the kernel's launch; the kernel itself runs
-    on asynchronously)."""
+    The planned backends time three stages of every batch. A query:
+    ``locations`` (hashing on the device and the copy to the host, which
+    waits for it), ``host_plan`` (the numpy planner) and
+    ``upload_and_launch`` (the plan arrays to the device and the kernel's
+    launch; the kernel itself runs on asynchronously). An insert:
+    ``locations`` (the hashing and the flat positions enqueued on the
+    device; no wait), ``device_plan`` (the compact plan's sort and counts
+    on the matrix's device; the host waits for the hashing and the sort)
+    and ``launch`` (the kernel's launch, with no wait)."""
     now = time.perf_counter()
     reg = obs_metrics.DEFAULT
     if reg.enabled:

@@ -102,17 +102,39 @@ def check_operands(kernel: str, **tensors) -> None:
                              f"got {t.dtype} (contiguous={t.is_contiguous()})")
 
 
-def library(name: str, argtypes: list) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use), with the
-    C entry point of the same name typed as ``argtypes`` -> ``int``."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if not _target(name).exists():
                 build_all()
-            lib = ctypes.CDLL(str(_target(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call the C entry point of kernel ``name`` (the function of the same
+    name in its library), typed as ``argtypes`` -> ``int``, with ``args``
+    and the current stream of ``device``; raise if it returns a CUDA error.
+
+    The typed entry point is resolved once and kept, and the device context
+    is entered only when ``device`` is not the current one: the wrapper's
+    host cost is paid on every launch of a small kernel.
+    """
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(library(name), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+
+
+_entries: dict = {}

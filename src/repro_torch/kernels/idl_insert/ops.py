@@ -1,20 +1,26 @@
-"""Host-side insert planners + executors of the ``insert_planned`` kernel.
+"""Insert planners, the card's compact plan, and executors of the
+``insert_planned`` kernel.
 
-Two generations of planner, both the reference's, verbatim (numpy):
+The kernel's operand is compact: a 1-D int64 tensor of flat bit positions
+(``(row * W + word) * 32 + bit``) into the packed words, viewed flat. No
+run plan, pad lane or tile reaches the kernel.
 
-* :func:`plan_insert_rounds` (legacy, the flat filter) groups an (η, n)
-  location grid by block into ROUNDS in which every block id is unique —
-  the TPU kernel's way to avoid write conflicts, one launch per round.
-  :func:`insert_with_plan` executes all rounds with ONE kernel launch: the
-  kernel ORs with atomics, which need no rounds.
-* :func:`plan_insert_runs` — the planner behind ``repro_torch.index.
-  ingest``: the batch's flat bit positions are sorted and deduplicated
-  once, then run-length-encoded by matrix row-block.
-  :func:`insert_planned` executes a plan in place: the kernel ORs each
-  valid offset's bit straight into the matrix, so the planner's
-  ``slot_ids``/``uniq_blocks`` tile bookkeeping and its pow2 pad runs
-  (which the TPU kernel needs) are kept only for parity and byte
-  accounting.
+* :func:`compact_insert_plan` — the ingest path's plan, built on the
+  matrix's device with torch ops alone: the batch's positions sorted and
+  deduplicated (``torch.unique``), then counted per row block
+  (``torch.unique_consecutive``). Its counters (``n_locs``, ``n_runs``,
+  ``n_tiles``, ``dma_bytes``, :meth:`CompactInsertPlan.run_lengths`) equal
+  the reference planner's, so the locality telemetry stays the reference's;
+  its sorted positions are the kernel's operand.
+* :func:`plan_insert_runs` and :func:`plan_insert_rounds` — the reference's
+  two numpy planners, verbatim and held by their parity tests. The run plan
+  (TPU layout: 128 lanes per run, -1 padded, pow2 pad runs) and the legacy
+  rounds plan of the flat filter (block ids unique per round, one TPU
+  launch per round) are no longer on the ingest path.
+  :func:`insert_planned` and :func:`insert_with_plan` execute them all the
+  same, in one launch of the same kernel: their valid lanes become flat
+  positions on the device (``kernel.lane_positions``; the kernel's atomics
+  need no rounds).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.idl_insert import kernel
+from repro_torch.kernels.idl_insert.kernel import CompactInsertPlan
 
 
 @dataclasses.dataclass
@@ -188,30 +195,50 @@ def plan_insert_runs(
     )
 
 
-def insert_planned(matrix: torch.Tensor, plan: InsertRunPlan | None
+def compact_insert_plan(
+    flat_bits: torch.Tensor, block_bits: int, inserts_per_run: int = 128
+) -> CompactInsertPlan | None:
+    """The compact plan of a batch's flat bit positions, on their device.
+
+    ``flat_bits``: any-shape int64 tensor of positions in the flattened
+    matrix, where ``InsertPlan.targets`` leaves them; negative positions are
+    dropped (masked inserts). Returns None when nothing survives, as
+    :func:`plan_insert_runs` does. On a CUDA tensor the host waits for the
+    device three times: at the mask, at ``torch.unique`` and at
+    ``torch.unique_consecutive`` (each learns an output size), and once more
+    for the run count and the last position, read together.
+    """
+    flat = flat_bits.reshape(-1).to(torch.int64)
+    positions = torch.unique(flat[flat >= 0])       # sorted + deduplicated
+    n = int(positions.shape[0])
+    if n == 0:
+        return None
+    _, counts = torch.unique_consecutive(positions // block_bits,
+                                         return_counts=True)
+    c = inserts_per_run
+    n_runs, top = torch.stack(
+        [((counts + c - 1) // c).sum(), positions[-1]]).tolist()
+    return CompactInsertPlan(
+        positions=positions, block_counts=counts, n_locs=n, n_runs=n_runs,
+        n_tiles=int(counts.shape[0]), max_position=top,
+        block_bits=block_bits, inserts_per_run=c,
+    )
+
+
+def insert_planned(matrix: torch.Tensor,
+                   plan: CompactInsertPlan | InsertRunPlan | None
                    ) -> torch.Tensor:
-    """OR a run plan's bits into the packed (n_rows, W) ``matrix`` in place
+    """OR a plan's bits into the packed (n_rows, W) ``matrix`` in place
     (one kernel launch on a CUDA matrix); returns ``matrix``. ``matrix`` may
-    be 1-D when ``W == 1``."""
+    be 1-D when ``W == 1``. A run plan's true runs (its pow2 pad runs are
+    all pad lanes) go to the matrix's device, where their valid lanes
+    become flat positions."""
     if plan is None:
         return matrix
-    w = int(matrix.shape[-1]) if matrix.dim() > 1 else 1
-    if plan.block_bits % (w * 32):
-        raise ValueError(
-            f"block_bits={plan.block_bits} not a row multiple of W={w}")
-    rpb = plan.block_bits // (w * 32)
-    mat = matrix.view(-1, w)
-    if mat.shape[0] % rpb:
-        raise ValueError(
-            f"rows_per_block={rpb} must divide n_rows={mat.shape[0]}")
-    if int(plan.block_ids.max()) >= mat.shape[0] // rpb:
-        raise ValueError("plan names a row block outside the matrix")
-    # only the true runs: the pow2 pad runs are all pad lanes
-    dev, r = matrix.device, plan.n_runs
-    kernel.insert_planned(
-        mat,
-        torch.as_tensor(plan.block_ids[:r], device=dev),
-        torch.as_tensor(plan.offsets[:r], device=dev),
-        rows_per_block=rpb,
-    )
-    return matrix
+    if isinstance(plan, CompactInsertPlan):
+        return kernel.insert_planned(matrix, plan)
+    r = plan.n_runs
+    block_ids, offsets = (torch.as_tensor(a[:r], device=matrix.device)
+                          for a in (plan.block_ids, plan.offsets))
+    return kernel.insert_planned(
+        matrix, kernel.lane_positions(block_ids, offsets, plan.block_bits))

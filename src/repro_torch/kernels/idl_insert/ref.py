@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the ``insert_planned`` kernel: the run-plan
-scatter and the flat filter's round-by-round tile insert."""
+"""Plain PyTorch versions of the ``insert_planned`` kernel: the scatter-OR
+of flat bit positions and the flat filter's round-by-round tile insert."""
 
 from __future__ import annotations
 
@@ -8,31 +8,25 @@ import torch
 from repro_torch.core.hashing import to_int32_bits
 
 
-def insert_planned_ref(
-    matrix: torch.Tensor,
-    block_ids: torch.Tensor,
-    offsets: torch.Tensor,
-    *,
-    rows_per_block: int,
-) -> torch.Tensor:
-    """OR every valid lane's bit into the (n_rows, W) int32 ``matrix`` in
-    place; returns ``matrix``.
+def insert_planned_ref(words: torch.Tensor, positions: torch.Tensor
+                       ) -> torch.Tensor:
+    """OR bit ``p & 31`` of word ``p >> 5`` of the int32 ``words`` (viewed
+    flat) in place for every ``p >= 0`` of the int64 ``positions``; returns
+    ``words``.
 
-    The planner's offsets are deduplicated, so the single-bit words of one
+    The positions are deduplicated first, so the single-bit words of one
     matrix word are disjoint and summing them (int64, per distinct word)
     equals OR-ing them — the reference oracle's trick
     (``repro.kernels.idl_insert.ref.insert_runs_ref``).
     """
-    valid = offsets >= 0
-    off = offsets[valid].to(torch.int64)
-    block = block_ids.to(torch.int64)[:, None].expand_as(offsets)[valid]
-    word = block * (rows_per_block * matrix.shape[1]) + (off >> 5)
-    bit = torch.ones_like(off) << (off & 31)
-    words, inverse = torch.unique(word, return_inverse=True)
-    acc = torch.zeros_like(words).index_add_(0, inverse, bit)
-    flat = matrix.view(-1)
-    flat[words] = flat[words] | to_int32_bits(acc)
-    return matrix
+    p = positions.reshape(-1).to(torch.int64)
+    p = torch.unique(p[p >= 0])
+    words_at, inverse = torch.unique(p >> 5, return_inverse=True)
+    acc = torch.zeros_like(words_at).index_add_(
+        0, inverse, torch.ones_like(p) << (p & 31))
+    flat = words.view(-1)
+    flat[words_at] = flat[words_at] | to_int32_bits(acc)
+    return words
 
 
 def insert_round_ref(

@@ -70,14 +70,10 @@ def gather_planned_rows(
                       device=matrix.device)
     if n_runs == 0:
         return out
-    fn = getattr(build.library(NAME, _ARGTYPES), NAME)
-    with torch.cuda.device(matrix.device):
-        err = fn(matrix.data_ptr(), block_ids.data_ptr(), offsets.data_ptr(),
+    build.launch(NAME, _ARGTYPES, matrix.device, matrix.data_ptr(),
+                 block_ids.data_ptr(), offsets.data_ptr(),
                  probe_index.data_ptr(), out.data_ptr(), n_runs, c,
-                 rows_per_block, matrix.shape[1],
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{NAME}: launch failed with CUDA error {err}")
+                 rows_per_block, matrix.shape[1])
     global launches
     launches += 1
     return out
@@ -116,14 +112,10 @@ def probe_planned_bits(
     out = torch.empty((n_probes,), dtype=torch.int32, device=bf_words.device)
     if n_runs == 0:
         return out
-    fn = getattr(build.library(BITS_NAME, _BITS_ARGTYPES), BITS_NAME)
-    with torch.cuda.device(bf_words.device):
-        err = fn(bf_words.data_ptr(), block_ids.data_ptr(),
+    build.launch(BITS_NAME, _BITS_ARGTYPES, bf_words.device,
+                 bf_words.data_ptr(), block_ids.data_ptr(),
                  offsets.data_ptr(), probe_index.data_ptr(), out.data_ptr(),
-                 n_runs, c, block_words,
-                 torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{BITS_NAME}: launch failed with CUDA error {err}")
+                 n_runs, c, block_words)
     global bits_launches
     bits_launches += 1
     return out

@@ -72,9 +72,8 @@ def test_insert_planned_kernel_vs_plain(cuda, n_rows, w, rpb, c, n_bits):
     flat[:50] = -1                       # masked targets are dropped
     plan = ins_ops.plan_insert_runs(flat, block_bits=rpb * w * 32,
                                     inserts_per_run=c)
-    want = ins_ref.insert_planned_ref(
-        matrix.clone(), torch.as_tensor(plan.block_ids, device=cuda),
-        torch.as_tensor(plan.offsets, device=cuda), rows_per_block=rpb)
+    want = ins_ref.insert_planned_ref(matrix.clone(),
+                                      torch.as_tensor(flat, device=cuda))
     before = ins_kernel.launches
     got = ins_ops.insert_planned(matrix, plan)
     torch.cuda.synchronize()
@@ -87,20 +86,52 @@ def test_empty_insert_plan_is_identity(cuda):
     matrix = torch.arange(64, dtype=torch.int32, device=cuda).reshape(16, 4)
     before = ins_kernel.launches
     assert ins_ops.insert_planned(matrix, None) is matrix
-    empty = torch.empty((0, 32), dtype=torch.int32, device=cuda)
-    ins_kernel.insert_planned(matrix, empty[:, 0], empty, rows_per_block=4)
+    ins_kernel.insert_planned(matrix, torch.empty(0, dtype=torch.int64,
+                                                  device=cuda))
+    assert ins_ops.insert_planned(matrix, ins_ops.compact_insert_plan(
+        torch.full((5,), -1, device=cuda), 64)) is matrix
     torch.cuda.synchronize()
     assert ins_kernel.launches == before
     assert torch.equal(matrix.cpu(), torch.arange(64, dtype=torch.int32)
                        .reshape(16, 4))
 
 
+@pytest.mark.parametrize("w,sort", [(1, True), (32, True), (32, False),
+                                    (3, False)])
+def test_insert_positions_kernel_vs_plain(cuda, w, sort):
+    """The compact operand: sorted unique positions (the main path's), or
+    unsorted with duplicates, several bits of one word, and masked ones."""
+    rng = np.random.default_rng(w)
+    matrix = _matrix(rng, 1 << 10, w, cuda)
+    flat = np.concatenate([rng.integers(0, matrix.numel() * 32, size=20000),
+                           np.arange(640, 700), np.repeat([77, 78], 40),
+                           [-1, -(1 << 40)]])
+    if sort:
+        operand = ins_ops.compact_insert_plan(
+            torch.as_tensor(flat, device=cuda), 64 * w * 32)
+        positions = operand.positions
+        assert operand.n_locs == np.unique(flat[flat >= 0]).size
+    else:
+        rng.shuffle(flat)
+        positions = operand = torch.as_tensor(flat, device=cuda)
+    want = ins_ref.insert_planned_ref(matrix.cpu(), positions.cpu())
+    before = ins_kernel.launches
+    got = ins_kernel.insert_planned(matrix, operand)
+    torch.cuda.synchronize()
+    assert ins_kernel.launches == before + 1
+    assert got is matrix
+    assert torch.equal(got.cpu(), want)
+
+
 def test_kernels_reject_bad_operands(cuda):
     matrix = torch.zeros((64, 2), dtype=torch.int32, device=cuda)
     ids = torch.zeros((1,), dtype=torch.int32, device=cuda)
     offs = torch.zeros((1, 32), dtype=torch.int64, device=cuda)
-    with pytest.raises(ValueError):
-        ins_kernel.insert_planned(matrix, ids, offs, rows_per_block=8)
+    with pytest.raises(ValueError):                  # int32 positions
+        ins_kernel.insert_planned(matrix, offs.to(torch.int32).reshape(-1))
+    with pytest.raises(ValueError):                  # past the last word
+        ins_kernel.insert_planned(matrix, torch.tensor([64 * 2 * 32],
+                                                       device=cuda))
     with pytest.raises(ValueError):
         probe_kernel.gather_planned_rows(
             matrix, ids.cpu(), offs.to(torch.int32), offs.to(torch.int32),
@@ -170,6 +201,46 @@ def test_window_min_kernel_unsigned_order_and_errors(cuda):
     with pytest.raises(ValueError):
         wm_kernel.window_min(torch.zeros((20, 2), dtype=torch.int64,
                                          device=cuda).t(), 4)
+
+
+@pytest.mark.parametrize("form", ["doph_lanes64", "doph_u64", "exact_u64",
+                                  "exact_i32", "exact_f32"])
+@pytest.mark.parametrize("shape,w", [((3, 215), 16), ((2, 700), 1),
+                                     ((4, 300), 31), ((1, 40), 40)])
+def test_window_min_one_launch_per_minhash(cuda, form, shape, w):
+    """Both fused forms and the unsigned order, on the card, against the
+    plain version (the stack of masks and the Gil–Werman minimum); the DOPH
+    hashes leave bin 3 of 4 empty."""
+    rng = np.random.default_rng(w)
+    eta = 4
+    if form.endswith("u64"):
+        a = _window_input(rng, shape, torch.int64, cuda)
+        fill, unsigned, shift = minhash.UINT64_MAX, True, 32
+    elif form.endswith("lanes64"):
+        a = torch.as_tensor(rng.integers(0, 1 << 32, size=shape), device=cuda)
+        fill, unsigned, shift = minhash.FILL32, False, 16
+    elif form.endswith("i32"):
+        a = _window_input(rng, shape, torch.int32, cuda)
+        fill, unsigned, shift = None, False, None
+    else:
+        a = _window_input(rng, shape, torch.float32, cuda)
+        fill, unsigned, shift = None, False, None
+    kw = dict(unsigned=unsigned)
+    if form.startswith("exact"):
+        a = torch.stack([a, a.flip(-1), a * 3, -a], dim=-2)
+    else:
+        top2 = 2 * shift - 2                      # bins of 4: the top bits
+        a = torch.where(wm_ref.doph_bins(a, eta, shift) == 3,
+                        a ^ (1 << top2), a)       # bin 3 -> 2
+        assert (wm_ref.doph_bins(a, eta, shift) != 3).all()
+        kw.update(n_bins=eta, bin_shift=shift, fill=fill)
+    before = wm_kernel.launches
+    got = wm_kernel.window_min(a, w, **kw)
+    torch.cuda.synchronize()
+    assert wm_kernel.launches == before + 1
+    want = wm_ref.window_min_binned_ref(a, w=w, **kw)
+    assert got.shape == want.shape == shape[:-1] + (eta, shape[-1] - w + 1)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m,L,c", [(1 << 20, 1 << 12, 128),

@@ -189,6 +189,88 @@ def test_window_min_rejects_bad_windows():
             wm_kernel.window_min(a, w)
 
 
+# -- the fused window_min: one call per MinHash -------------------------------
+
+def _pallas_rows(x: np.ndarray, w: int) -> np.ndarray:
+    """The reference's Pallas ``window_min`` (interpret mode), row by row
+    over the last axis."""
+    rows = x.reshape(-1, x.shape[-1])
+    out = [np.asarray(j_wm_kernel.window_min(jnp.asarray(r), w=w, tile=256,
+                                               interpret=True)) for r in rows]
+    return np.stack(out).reshape(x.shape[:-1] + (-1,))
+
+
+def _binned_case(rng, carrier, shape):
+    """(values as the reference holds them, fill as the reference sees it,
+    the port's fill, unsigned flag, DOPH bin shift) of one carrier: uint64
+    hashes in int64, or uint32 lanes in int64."""
+    if carrier == "u64":
+        x = _u64_keys(rng, int(np.prod(shape))).reshape(shape)
+        return x, np.uint64(2 ** 64 - 1), minhash.UINT64_MAX, True, 32
+    x = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64).astype(np.uint32)
+    x.reshape(-1)[::5] |= np.uint32(1 << 31)                  # bit 31 set
+    return x, np.uint32(minhash.FILL32), minhash.FILL32, False, 16
+
+
+def _carry(x: np.ndarray) -> torch.Tensor:
+    """The port's int64 carrier of uint64 hashes or uint32 lanes."""
+    if x.dtype == np.uint64:
+        return _t(x.reshape(-1)).reshape(x.shape)
+    return torch.from_numpy(x.astype(np.int64))
+
+
+@pytest.mark.parametrize("carrier", ["lanes64", "u64"])
+def test_window_min_doph_form_vs_reference_kernel(rng, carrier):
+    """The DOPH form: bin j's output equals the Pallas kernel over the hashes
+    whose bin, ((h >> s) * η) >> s, is j; no hash falls in bin 3 of 4, so it
+    stays all fill."""
+    eta, w = 4, 16
+    x, jfill, fill, unsigned, shift = _binned_case(rng, carrier, (2, 120))
+    top2 = x.dtype.type(2 * shift - 2)        # bins of 4: the top two bits
+    x[(x >> top2) == 3] ^= x.dtype.type(1) << top2          # bin 3 -> 2
+    bins = (x.astype(np.uint64) >> np.uint64(shift)) * np.uint64(eta) \
+        >> np.uint64(shift)
+    assert set(np.unique(bins)) == {0, 1, 2}
+    a = _carry(x)
+    np.testing.assert_array_equal(wm_ref.doph_bins(a, eta, shift).numpy(),
+                                  bins.astype(np.int64))
+    before = wm_kernel.launches
+    got = wm_ops.window_min(a, w, n_bins=eta, bin_shift=shift, fill=fill,
+                            unsigned=unsigned)
+    assert wm_kernel.launches == before          # plain version on the CPU
+    assert got.shape == (2, eta, 120 - w + 1) and got.dtype == a.dtype
+    for j in range(eta):
+        want = _pallas_rows(np.where(bins == j, x, jfill), w)
+        np.testing.assert_array_equal(
+            got[:, j].numpy(), want.view(np.int64) if carrier == "u64"
+            else want.astype(np.int64))
+    assert (got[:, 3] == fill).all()
+
+
+@pytest.mark.parametrize("carrier", ["lanes64", "u64"])
+def test_window_min_exact_form_vs_reference_kernel(rng, carrier):
+    """The exact form: an (B, η, n) input, every repetition in one call."""
+    x, _, _, unsigned, _ = _binned_case(rng, carrier, (2, 3, 90))
+    got = wm_ops.window_min(_carry(x), 7, unsigned=unsigned)
+    want = _pallas_rows(x, 7)
+    np.testing.assert_array_equal(
+        got.numpy(), want.view(np.int64) if carrier == "u64"
+        else want.astype(np.int64))
+
+
+def test_window_min_binned_rejects_bad_arguments():
+    a = torch.zeros((2, 10), dtype=torch.int64)
+    for kw in (dict(n_bins=0, bin_shift=32), dict(n_bins=2),
+               dict(n_bins=2, bin_shift=0), dict(n_bins=2, bin_shift=64)):
+        with pytest.raises(ValueError):
+            wm_ops.window_min(a, 3, **kw)
+    with pytest.raises(ValueError):                 # the DOPH form is int64
+        wm_ops.window_min(a.int(), 3, n_bins=2, bin_shift=16)
+    for other in (a.float(), a.int()):              # unsigned is int64 only
+        with pytest.raises(ValueError):
+            wm_ops.window_min(other, 3, unsigned=True)
+
+
 # -- MinHash -----------------------------------------------------------------
 
 def test_doph_minhash_with_empty_bins():

@@ -282,7 +282,9 @@ def test_planned_backends_record_locality_and_stage_times(rng, op):
     stages = {t_metrics.parse_label_key(lk)["stage"]: h for lk, h in
               t_snap["hists"]["planner.stage_ms"].items()
               if t_metrics.parse_label_key(lk)["op"] == op}
-    assert sorted(stages) == ["host_plan", "locations", "upload_and_launch"]
+    assert sorted(stages) == (
+        ["host_plan", "locations", "upload_and_launch"] if op == "query"
+        else ["device_plan", "launch", "locations"])
     assert all(h["count"] == 1 and h["sum"] >= 0 for h in stages.values())
 
 

@@ -155,8 +155,7 @@ def test_insert_planned_none_plan_is_identity(rng):
 def test_insert_planned_ref_zero_runs_and_1d(rng):
     words = _words(rng, 256, 1)
     mat = _tw(words)
-    empty = torch.empty((0, 16), dtype=torch.int32)
-    ins_ref.insert_planned_ref(mat, empty[:, 0], empty, rows_per_block=4)
+    ins_ref.insert_planned_ref(mat, torch.empty(0, dtype=torch.int64))
     np.testing.assert_array_equal(mat.numpy().view(np.uint32), words)
     flat = rng.integers(0, 256 * 32, size=300)
     plan = ins_ops.plan_insert_runs(flat, block_bits=128, inserts_per_run=16)
@@ -166,3 +165,112 @@ def test_insert_planned_ref_zero_runs_and_1d(rng):
         jnp.asarray(words), plan, use_ref=True))
     np.testing.assert_array_equal(flat_words.numpy().view(np.uint32),
                                   want.reshape(-1))
+
+
+# -- the compact plan and the scatter-OR over flat positions -----------------
+
+@pytest.mark.parametrize("n,block,c,span", [
+    (900, 512, 32, 64),          # ~28 bits per block: one run each
+    (5000, 2048, 128, 16),       # ~312 bits per block: runs of C + a tail
+    (3000, 64, 128, 4000),       # many blocks of one or two bits
+    (1, 16, 4, 1),               # one position
+    (4000, 1 << 19, 128, 2),     # two blocks of ~2000 bits: 16 runs each
+])
+def test_compact_insert_plan_field_by_field(rng, n, block, c, span):
+    flat = rng.integers(0, span * block, size=n)
+    flat[: n // 10] = -rng.integers(1, 1 << 40, size=n // 10)   # masked
+    want = j_ins_ops.plan_insert_runs(flat, block_bits=block,
+                                      inserts_per_run=c)
+    got = ins_ops.compact_insert_plan(torch.from_numpy(flat.reshape(2, -1)
+                                                       if n % 2 == 0
+                                                       else flat), block, c)
+    if want is None:
+        assert got is None
+        return
+    assert (got.n_locs, got.n_runs, got.n_tiles, got.dma_bytes) == \
+        (want.n_locs, want.n_runs, want.n_tiles, want.dma_bytes)
+    assert got.block_bits == block and got.inserts_per_run == c
+    lengths = got.run_lengths()
+    assert lengths.dtype == want.run_lengths.dtype
+    np.testing.assert_array_equal(lengths, want.run_lengths)   # run order
+    np.testing.assert_array_equal(got.positions.numpy(),
+                                  np.unique(flat[flat >= 0]))
+    assert got.max_position == int(flat.max())
+
+
+def test_compact_insert_plan_empty_is_none():
+    for flat in (torch.full((7,), -1, dtype=torch.int64),
+                 torch.empty((0,), dtype=torch.int64),
+                 torch.empty((4, 0), dtype=torch.int64)):
+        assert ins_ops.compact_insert_plan(flat, 64) is None
+    assert j_ins_ops.plan_insert_runs(np.full(7, -1), 64) is None
+    mat = torch.ones((4, 2), dtype=torch.int32)
+    assert ins_ops.insert_planned(mat, None) is mat
+
+
+def test_lane_positions_and_the_plan_bound(rng):
+    """A run plan's valid lanes, flattened, are its sorted unique positions
+    (pad runs and pad lanes dropped); a compact plan whose largest position
+    lies past the words raises before anything is written."""
+    flat = rng.integers(0, 40 * 512, size=3000)
+    flat[:30] = -1
+    plan = j_ins_ops.plan_insert_runs(flat, block_bits=512,
+                                      inserts_per_run=32)
+    assert plan.block_ids.shape[0] > plan.n_runs          # pad runs exist
+    got = ins_kernel.lane_positions(torch.from_numpy(plan.block_ids),
+                                    torch.from_numpy(plan.offsets), 512)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), np.unique(flat[flat >= 0]))
+    cplan = ins_ops.compact_insert_plan(torch.from_numpy(flat), 512, 32)
+    small = torch.zeros((flat.max() // 32,), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ins_kernel.insert_planned(small, cplan)
+    assert not small.any()
+
+
+@pytest.mark.parametrize("n_rows,w,rpb,c,n_bits", [
+    (256, 3, 16, 32, 900), (1 << 12, 1, 64, 128, 3000),
+    (64, 32, 64, 128, 5000),
+])
+def test_insert_positions_plain_vs_reference(rng, n_rows, w, rpb, c, n_bits):
+    """The compact plan through the plain insert (what a CPU matrix runs)
+    against the reference's insert_planned of its run plan over the same
+    positions, in interpret mode and through its jnp oracle."""
+    words = _words(rng, n_rows, w)
+    words[rng.random(words.shape) < 0.5] = 0
+    flat = rng.integers(0, n_rows * w * 32, size=n_bits)
+    flat[:20] = -1
+    jplan = j_ins_ops.plan_insert_runs(flat, block_bits=rpb * w * 32,
+                                       inserts_per_run=c)
+    cplan = ins_ops.compact_insert_plan(torch.from_numpy(flat),
+                                        rpb * w * 32, c)
+    mat = _tw(words)
+    before = ins_kernel.launches
+    assert ins_ops.insert_planned(mat, cplan) is mat           # in place
+    assert ins_kernel.launches == before
+    for kw in (dict(interpret=True), dict(use_ref=True)):
+        want = np.asarray(j_ins_ops.insert_planned(jnp.asarray(words), jplan,
+                                                   **kw))
+        np.testing.assert_array_equal(mat.numpy().view(np.uint32), want)
+
+
+def test_insert_planned_unsorted_duplicates_and_bounds(rng):
+    """Any order, duplicates and several bits of one word: the same words as
+    the reference's oracle over the sorted unique positions; a position
+    past the words raises before anything is written."""
+    words = _words(rng, 32, 2)
+    flat = np.concatenate([rng.integers(0, 32 * 2 * 32, size=400),
+                           np.arange(64, 96), [5, 5, 5, -3]])
+    rng.shuffle(flat)
+    mat = _tw(words)
+    ins_kernel.insert_planned(mat, torch.from_numpy(flat))
+    jplan = j_ins_ops.plan_insert_runs(flat, block_bits=8 * 2 * 32,
+                                       inserts_per_run=32)
+    want = np.asarray(j_ins_ops.insert_planned(jnp.asarray(words), jplan,
+                                               use_ref=True))
+    np.testing.assert_array_equal(mat.numpy().view(np.uint32), want)
+    with pytest.raises(ValueError):
+        ins_kernel.insert_planned(mat, torch.tensor([3, 32 * 2 * 32]))
+    with pytest.raises(ValueError):
+        ins_kernel.insert_planned(mat, torch.zeros((2, 2), dtype=torch.int64))
+    np.testing.assert_array_equal(mat.numpy().view(np.uint32), want)
