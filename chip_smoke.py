@@ -9,45 +9,56 @@ reference package) and runs these phases, printing one line each:
    every kernel source (``-Xptxas -v`` registers / shared memory / spills);
 2. kernels vs their plain PyTorch versions on the card, bit for bit:
    2a-2c the bit-sliced path's ``gather_planned_rows`` and
-   ``insert_planned`` at small widths (W = 1 and 32; for the gather pad
-   lanes and ragged run counts; for the insert unsorted positions with
-   duplicates, masked ones and a full word, their compact plan, whose
-   counters must equal the reference planner's, a run plan's flattened
-   lanes, and an empty tensor) and at the main path's shapes (204,800
-   probes into a 2^26 x 32 matrix; one 512-read insert batch on its
-   compact operand, with the ``device_plan`` stage's host time and its
-   sort's device time); 2d ``window_min``, one launch per MinHash, at
-   small shapes (w in {1, 2, 16, 31}, ragged lengths; plain int64 lanes
-   with bit 31 set, sign-flipped 64-bit hashes, int32, float32; unsigned
-   int64; the DOPH form, lanes and unsigned 64-bit, with an empty bin;
-   the exact form), at the rolling MinHash's shapes ((256, 215) and (512,
-   215) int64, w = 16, η 4: both DOPH forms, and the exact form signed
-   beside ``unfold(-1, w, 1).amin(-1)`` and unsigned) and over a whole
-   genome's hashes (unsigned DOPH); 2e the flat filter's
-   ``probe_planned_bits`` and ``insert_with_plan`` at the flat filter's
-   shapes (one 256-read probe plan into a 2^27-word filter; a rounds plan
-   with one block in several rounds, its valid lanes flattened on the
-   device). Each main-shape kernel is timed with CUDA events and by
-   CUDA-graph replay beside its plain version, its byte bound and, where
-   one exists, a library call (timed both ways too);
+   ``insert_planned`` at small widths (W = 1 and 32; for the gather the AND
+   over η in {1, 3, 4} with ragged n_k and the last row, a misaligned view,
+   an empty batch and a run plan's rows put back into probe order; for the
+   insert unsorted positions with duplicates, masked ones and a full word,
+   their compact plan, whose counters must equal the reference planner's,
+   a run plan's flattened lanes, and an empty tensor) and at the main
+   path's shapes (one 256-read serve batch, 204,800 probes into a 2^26 x
+   32 matrix, on the compact probe plan, with the query ``device_plan``
+   stage's host time and its counters against the reference planner's;
+   one 512-read insert batch on its compact operand, with the insert
+   ``device_plan`` stage's host time and its sort's device time); 2d
+   ``window_min``, one launch per MinHash, at small shapes (w in {1, 2,
+   16, 31}, ragged lengths; plain int64 lanes with bit 31 set,
+   sign-flipped 64-bit hashes, int32, float32; unsigned int64; the DOPH
+   form, lanes and unsigned 64-bit, with an empty bin; the exact form), at
+   the rolling MinHash's shapes ((256, 215) and (512, 215) int64, w = 16,
+   η 4: both DOPH forms, and the exact form signed beside ``unfold(-1, w,
+   1).amin(-1)`` and unsigned) and over a whole genome's hashes (unsigned
+   DOPH); 2e the flat filter's ``probe_planned_bits`` and
+   ``insert_with_plan`` at the flat filter's shapes (one 256-read batch's
+   compact probe plan into a 2^27-word filter, its counters against the
+   reference planner's; a rounds plan with one block in several rounds,
+   its valid lanes flattened on the device). Each main-shape kernel is
+   timed with CUDA events and by CUDA-graph replay (the two probe kernels
+   and the gather's library call also with the L2 flushed before each
+   call) beside its plain version, its byte bound and, where one exists,
+   a library call (timed both ways too);
 3. the bit-sliced main path at full width (``full_config``: m = 2^26 rows,
    1024 files, k 31, t 16, L 2^17, η 4): an 8 GiB ``BitSlicedIndex`` built
    through ``build_archive(backend="idl_insert")`` (no numpy run planner
    call allowed) and served through ``GeneSearchService(backend=
-   "idl_probe")`` in 256-read batches; recall must be total, the first
-   batch must match the plain ``"torch"`` backend, and ``window_min`` must
-   launch once per MinHash; then the mean host time of each planner stage
-   (insert: ``locations``, ``device_plan``, ``launch``; query:
-   ``locations``, ``host_plan``, ``upload_and_launch``);
+   "idl_probe")`` in 256-read batches (no numpy probe planner call
+   allowed; one ``gather_planned_rows`` launch per batch); recall must be
+   total, the first batch must match the plain ``"torch"`` backend, and
+   ``window_min`` must launch once per MinHash; then the mean host time of
+   each planner stage (insert and query alike: ``locations``,
+   ``device_plan``, ``launch``) and the peak device memory of ingest and
+   of serving;
 4. the paper's flat IDL Bloom filter at full width (m = 2^32 bits, a
    512 MiB filter; L 2^15, η 4, k 31, t 16) over one E. coli-sized genome:
    ingest through ``build_archive(backend="idl_insert")`` (no numpy run
    planner call), the same genome's locations through
    ``plan_insert_rounds`` and ``insert_with_plan`` into a second filter
    (equal word for word), then 8 batches of 256 genome reads served
-   through ``msmt`` (all true), ``probe_membership`` (equal to
-   ``query_batch``) and one batch through ``GeneSearchService``, plus
-   poisoned reads counted; ``window_min`` once per MinHash.
+   through ``msmt`` (all true; no numpy probe planner call, one
+   ``probe_planned_bits`` launch per query and no ``gather_planned_rows``
+   launch), ``probe_membership`` on the reference's run plan and on the
+   compact plan (both equal to ``query_batch``) and one batch through
+   ``GeneSearchService``, plus poisoned reads counted; ``window_min`` once
+   per MinHash.
 
 Every path phase zeroes the launch counters just before it and reads them
 just after; each kernel the path runs must have launched. Then it prints
@@ -60,6 +71,7 @@ without the port beside it, or when any build, launch or check fails.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -141,6 +153,16 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+L2_FLUSH_BYTES = 256 << 20    # five times the H100's 50 MB L2
+
+
+def graph_ms_cold(fn, flush) -> float:
+    """Device time of one ``fn`` call with the L2 cold: the CUDA-graph time
+    of ``flush`` then ``fn``, less that of ``flush`` alone (``flush``
+    writes ``L2_FLUSH_BYTES``, evicting what the last call left in L2)."""
+    return graph_ms(lambda: (flush(), fn())) - graph_ms(flush)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest |a - b| over the elements (0 when equal; NaN equals NaN)."""
     diff = ((a != b) & ~(torch.isnan(a) & torch.isnan(b))
@@ -210,14 +232,17 @@ def as_dev(dev, *arrays) -> list:
 
 def small_shapes_phase(dev) -> None:
     """Phase 2a: both kernels against their plain versions at W = 1 and 32.
-    The gather: pad lanes, runs longer than one 32-lane step, a padded run
-    count. The insert: raw positions unsorted, with duplicates, masked
-    ones and a word with all 32 bits set; the compact plan of the same
-    positions (its counters equal the reference planner's); a run plan
-    through its flattened lanes; an empty tensor."""
+    The gather: the AND over η in {1, 3, 4} with ragged n_k and the last
+    row on its compact plan, a misaligned view (the 4-byte word path), an
+    empty batch, and a run plan's rows put back into probe order. The
+    insert: raw positions unsorted, with duplicates, masked ones and a word
+    with all 32 bits set; the compact plan of the same positions (its
+    counters equal the reference planner's); a run plan through its
+    flattened lanes; an empty tensor."""
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
     from repro_torch.kernels.idl_insert import ops as ins_ops
     from repro_torch.kernels.idl_insert import ref as ins_ref
+    from repro_torch.kernels.idl_probe import kernel as probe_kernel
     from repro_torch.kernels.idl_probe import ops as probe_ops
     from repro_torch.kernels.idl_probe import ref as probe_ref
 
@@ -225,19 +250,35 @@ def small_shapes_phase(dev) -> None:
     small = []
     for w in (1, 32):
         matrix = rand_matrix(4096, w, dev)
+        for eta in (1, 3, 4):
+            rows = rng.integers(0, 4096, size=(3, eta, 97))
+            rows[1] = np.sort(rng.integers(0, 128, size=(eta, 97)), axis=1)
+            rows[2, :, 0] = 4095                        # the last row
+            qplan = probe_ops.compact_probe_plan(torch.as_tensor(
+                rows, device=dev), 64)
+            got = probe_kernel.gather_planned_rows(matrix, qplan)
+            want = probe_ref.gather_and_ref(matrix, qplan.rows)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"gather W={w} η={eta} kernel == plain")
+        view = rand_matrix(4096 * w + 1, 1, dev).reshape(-1)[1:].view(4096, w)
+        check(view.data_ptr() % 16 == 4, "a misaligned view")
+        got = probe_kernel.gather_planned_rows(view, qplan)
+        empty = probe_kernel.gather_planned_rows(
+            matrix, torch.empty((0, 4, 97), dtype=torch.int64, device=dev))
         rows = rng.integers(0, 4096, size=(3, 97))
         rows[1].sort()
-        rows[2] = np.sort(rng.integers(0, 128, size=97))   # ~48-probe runs
         plan = probe_ops.plan_probe_runs(rows, block_bits=64,
                                          probes_per_run=128)
         check((plan.offsets < 0).any(), "gather plan has pad lanes")
-        got = probe_ops.gather_planned_rows(matrix, plan)
-        want = probe_ref.gather_planned_rows_ref(
-            matrix, *as_dev(dev, plan.block_ids, plan.offsets,
-                            plan.probe_index),
-            rows_per_block=64, n_probes=plan.n_probes)
+        in_order = probe_ops.gather_planned_rows(matrix, plan)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"gather W={w} kernel == plain")
+        check(torch.equal(got, probe_ref.gather_and_ref(view, qplan.rows))
+              and empty.shape == (0, 97, w) and torch.equal(
+                  in_order, matrix[torch.as_tensor(rows.reshape(-1),
+                                                   device=dev)]),
+              f"gather W={w}: misaligned view, empty batch and run plan "
+              f"== plain")
         flat = rng.integers(0, 4096 * w * 32, size=5000)
         flat[:100] = -1                                 # masked
         flat = np.concatenate([flat, np.arange(320, 352),   # one full word
@@ -264,9 +305,10 @@ def small_shapes_phase(dev) -> None:
             torch.cuda.synchronize()
             check(torch.equal(fresh, want),
                   f"insert W={w} {name} plan kernel == plain")
-        small.append(f"W={w}: {plan.n_runs} gather runs, {flat.size} insert "
-                     f"positions ({cplan.n_locs} unique in {cplan.n_tiles} "
-                     f"blocks, {cplan.n_runs} runs)")
+        small.append(f"W={w}: gathers at η 1/3/4 and a {plan.n_runs}-run "
+                     f"plan, {flat.size} insert positions ({cplan.n_locs} "
+                     f"unique in {cplan.n_tiles} blocks, {cplan.n_runs} "
+                     f"runs)")
     matrix = rand_matrix(64, 4, dev)
     before, launched = matrix.clone(), ins_kernel.launches
     ins_ops.insert_planned(matrix, None)
@@ -286,6 +328,7 @@ def main_shapes_phase(cfg, archive, dev) -> list:
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
     from repro_torch.kernels.idl_insert import ref as ins_ref
     from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.idl_probe import ops as probe_ops
     from repro_torch.kernels.idl_probe import ref as probe_ref
     from repro_torch.serving import genesearch as gs
 
@@ -294,47 +337,53 @@ def main_shapes_phase(cfg, archive, dev) -> list:
     w = shape[1]
     matrix = rand_matrix(*shape, dev)
 
-    # gather at one serve batch: 256 reads x 200 kmers x η 4 probes
+    # gather at one serve batch: 256 reads x 200 kmers x η 4 probes, on the
+    # compact plan the serve path builds
     qplan = gs.query_plan(cfg, SERVE_BATCH, shape, device=dev)
     reads = torch.as_tensor(
         rng.integers(0, 4, size=(SERVE_BATCH, cfg.read_len), dtype=np.uint8),
         device=dev)
-    rplan, locs = qplan.plan_runs(reads)
-    bids, offs, pidx = as_dev(dev, rplan.block_ids, rplan.offsets,
-                              rplan.probe_index)
-    rpb = qplan.rows_per_block
+    rows = qplan.locations(reads)                   # (B, η, n_k) int64
+    torch.cuda.synchronize()
+    plan_s = []
+    for _ in range(6):                     # host wall, the first one warms
+        t0 = time.perf_counter()
+        gplan = probe_ops.compact_probe_plan(rows, qplan.rows_per_block,
+                                             qplan.probes_per_run)
+        plan_s.append(time.perf_counter() - t0)
+    # the reference planner over the same rows, copied to the host once
+    host_rows = rows.cpu().numpy()
+    b, eta, n_k = host_rows.shape
+    rplan = probe_ops.plan_probe_runs(host_rows.reshape(b * eta, n_k),
+                                      block_bits=qplan.rows_per_block,
+                                      probes_per_run=qplan.probes_per_run)
+    check((gplan.n_runs, gplan.n_probes) == (rplan.n_runs, rplan.n_probes)
+          and qplan.run_dma_bytes(gplan) == qplan.run_dma_bytes(rplan)
+          and np.array_equal(gplan.run_lengths(), rplan.run_lengths),
+          "compact probe plan == the reference planner's counters at the "
+          "serve shape")
 
     def gather_kernel():
-        return probe_kernel.gather_planned_rows(
-            matrix, bids, offs, pidx, rows_per_block=rpb,
-            n_probes=rplan.n_probes)
+        return probe_kernel.gather_planned_rows(matrix, gplan)
 
     def gather_plain():
-        return probe_ref.gather_planned_rows_ref(
-            matrix, bids, offs, pidx, rows_per_block=rpb,
-            n_probes=rplan.n_probes)
+        return probe_ref.gather_and_ref(matrix, rows)
 
-    probe_rows = locs.reshape(-1)
+    probe_rows = rows.reshape(-1)
 
     def gather_library():
         return torch.index_select(matrix, 0, probe_rows)
 
-    got, want, lib = gather_kernel(), gather_plain(), gather_library()
+    got, want = gather_kernel(), gather_plain()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    check(err == 0 and torch.equal(got, lib), "gather kernel == plain at "
-          "the main path's shapes")
-    del got, want, lib
-    # the bound charges what the work needs: the runs' block ids, the
-    # sectors of offsets and probe indices that hold a valid lane, the
-    # distinct rows read and the rows written (not the -1 pad lanes)
+    check(err == 0, "gather kernel == plain at the main path's shapes")
+    del got, want
+    # the bound charges what the work needs: the row indices (8 B each,
+    # read once), the distinct rows read and the answers written
     rows_read = torch.unique(probe_rows).cpu().numpy()
-    lanes = valid_lanes(rplan.offsets)
-    g_bytes = (sector_bytes(np.arange(rplan.n_runs), 1)
-               + 2 * sector_bytes(lanes, 1)
-               + sector_bytes(rows_read * w, w)
-               + sector_bytes(np.arange(rplan.n_probes) * w, w))
-    g_padded = rplan.offsets.nbytes + rplan.probe_index.nbytes
+    g_bytes = (8 * probe_rows.numel() + sector_bytes(rows_read * w, w)
+               + 4 * b * n_k * w)
     gather = {
         "name": probe_kernel.NAME, "route": "cuda",
         "source": probe_kernel.SOURCE, "replaces": probe_kernel.REPLACES,
@@ -346,15 +395,33 @@ def main_shapes_phase(cfg, archive, dev) -> list:
     }
     GRAPH_MS[probe_kernel.NAME] = graph_ms(gather_kernel)
     GRAPH_MS["torch.index_select"] = graph_ms(gather_library)
+    # graph replay reads the same 26 MB of rows each call, which the 50 MB
+    # L2 holds; the serve path meets them cold
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = functools.partial(scratch.fill_, 0)
+    GRAPH_MS[probe_kernel.NAME + " (L2 cold)"] = graph_ms_cold(gather_kernel,
+                                                               flush)
+    GRAPH_MS["torch.index_select (L2 cold)"] = graph_ms_cold(gather_library,
+                                                             flush)
     print(f"phase 2b gather at serve shapes: ok (max_abs_err {err}, "
-          f"tolerance 0) — {rplan.n_probes} probes in "
-          f"{rplan.n_runs} runs of <= {rplan.probes_per_run} "
-          f"(mean {rplan.n_probes / rplan.n_runs:.4f} probes/run, rpb {rpb}); "
-          f"kernel {gather['ms']:.6f} ms, plain {gather['plain_ms']:.6f} ms, "
-          f"index_select {gather['library_ms']:.6f} ms (graph replay "
-          f"{GRAPH_MS['torch.index_select']:.6f} ms), bound "
-          f"{gather['bound_ms']:.6f} ms ({g_bytes} B; the plan's padded "
-          f"offsets and probe indices hold {g_padded} B, not charged)")
+          f"tolerance 0) — {gplan.n_probes} probes, {b * n_k} keys of η "
+          f"{eta}, {rows_read.size} distinct rows; compact plan == the "
+          f"reference planner's counters ({gplan.n_runs} runs of <= "
+          f"{gplan.probes_per_run}, mean "
+          f"{gplan.n_probes / gplan.n_runs:.4f} probes/run, rpb "
+          f"{qplan.rows_per_block}); device_plan host wall ms "
+          f"{[round(1e3 * t, 3) for t in plan_s]}; kernel (gather and AND "
+          f"over η) {gather['ms']:.6f} ms (graph replay "
+          f"{GRAPH_MS[probe_kernel.NAME]:.6f} ms, L2 cold "
+          f"{GRAPH_MS[probe_kernel.NAME + ' (L2 cold)']:.6f} ms), plain "
+          f"{gather['plain_ms']:.6f} ms, bound {gather['bound_ms']:.6f} ms "
+          f"({g_bytes} B = 8 B x {probe_rows.numel()} row indices + rows "
+          f"read + answers); yardstick index_select of the "
+          f"{probe_rows.numel()} rows alone (the gather half, no AND) "
+          f"{gather['library_ms']:.6f} ms (graph replay "
+          f"{GRAPH_MS['torch.index_select']:.6f} ms, L2 cold "
+          f"{GRAPH_MS['torch.index_select (L2 cold)']:.6f} ms)")
+    del scratch, flush
 
     # insert at one build_archive chunk: the archive's first 512 windows,
     # on the compact operand the ingest path builds
@@ -505,6 +572,7 @@ def main_path_phase(cfg, archive, dev) -> dict:
     that run. Returns the launch counts."""
     from repro_torch.index import BitSlicedIndex, build_archive
     from repro_torch.kernels.idl_insert import ops as ins_ops
+    from repro_torch.kernels.idl_probe import ops as probe_ops
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.serving import GeneSearchService, ServiceConfig
 
@@ -522,6 +590,8 @@ def main_path_phase(cfg, archive, dev) -> dict:
     check(read_launches()["insert_planned"] > 0,
           "insert_planned launched during ingest")
     check(planner[0] == 0, "no numpy run planner on the CUDA ingest path")
+    ingest_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
 
     svc = GeneSearchService(eng, ServiceConfig(
         theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
@@ -534,8 +604,10 @@ def main_path_phase(cfg, archive, dev) -> dict:
         fids = qrng.integers(0, cfg.n_files, size=SERVE_BATCH)
         reads = [archive[int(f)].reads(cfg.read_len, 1)[0] for f in fids]
         t0 = time.perf_counter()
-        results = svc.search(reads)
+        with counting_calls(probe_ops, "plan_probe_runs") as qplanner:
+            results = svc.search(reads)
         batch_ms.append(1e3 * (time.perf_counter() - t0))
+        check(qplanner[0] == 0, f"no numpy probe planner on serve batch {r}")
         for fid, res in zip(fids, results):
             check(res.matches.shape == (cfg.n_files,), "verdict shape")
             hit = int(fid) in res.file_ids
@@ -551,9 +623,14 @@ def main_path_phase(cfg, archive, dev) -> dict:
             check(all(np.array_equal(a.matches, b.matches)
                       for a, b in zip(results, plain)),
                   "idl_probe verdicts == torch verdicts on the first batch")
+    serve_peak = torch.cuda.max_memory_allocated()
     launches = read_launches()
     for name in ("gather_planned_rows", "insert_planned", "window_min"):
         check(launches[name] > 0, f"{name} launched on the bit-sliced path")
+    check(launches["gather_planned_rows"] == SERVE_BATCHES
+          and launches["probe_planned_bits"] == 0,
+          "gather_planned_rows launched once per serve batch, "
+          "probe_planned_bits never")
     check(correct == total, f"recall {correct}/{total} is total")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
@@ -571,11 +648,12 @@ def main_path_phase(cfg, archive, dev) -> dict:
           f"{planner[0]}; {runs_i:.0f} planner runs counted from the compact "
           f"plans); window_min once per MinHash ({minhashes}); serve "
           f"{SERVE_BATCHES} x "
-          f"{SERVE_BATCH} reads, batch ms {[round(b, 3) for b in batch_ms]}; "
+          f"{SERVE_BATCH} reads, batch ms {[round(b, 3) for b in batch_ms]} "
+          f"(numpy probe planner calls 0, one gather launch per batch); "
           f"launches {json.dumps(launches)}; recall {correct}/{total}; mean "
           f"extra matched files {extra / total:.4f}; first batch == torch "
-          f"backend; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B; "
+          f"backend; max_memory_allocated ingest {ingest_peak} B, serve "
+          f"{serve_peak} B; "
           f"locality.planned_tile_bytes query {tile_q:.0f} insert "
           f"{tile_i:.0f}")
     print("phase 3 where the time goes (host ms per batch, means over the "
@@ -742,34 +820,39 @@ def flat_kernels_phase(cfg, g, dev) -> list:
                                                  SERVE_BATCH, seed=7),
                             device=dev)
     locs = packed.batch_locations(cfg, reads, "idl")      # (B, η, n_k)
-    locs = locs.transpose(0, 1).reshape(cfg.eta, -1).cpu().numpy()
-    plan = probe_ops.plan_probe_runs(locs, cfg.L)
-    bids, offs, pidx = as_dev(dev, plan.block_ids, plan.offsets,
-                              plan.probe_index)
+    torch.cuda.synchronize()
+    plan_s = []
+    for _ in range(6):                     # host wall, the first one warms
+        t0 = time.perf_counter()
+        plan = probe_ops.compact_probe_plan(locs, cfg.L)
+        plan_s.append(time.perf_counter() - t0)
+    # the reference planner over the same locations, copied to the host once
+    host_locs = locs.cpu().numpy()
+    b, eta, n_k = host_locs.shape
+    rplan = probe_ops.plan_probe_runs(host_locs.reshape(b * eta, n_k), cfg.L)
+    check((plan.n_runs, plan.n_probes) == (rplan.n_runs, rplan.n_probes)
+          and np.array_equal(plan.run_lengths(), rplan.run_lengths),
+          "compact probe plan == the reference planner's counters at the "
+          "flat filter's shapes")
 
     def probe_kernel_call():
-        return probe_kernel.probe_planned_bits(
-            words, bids, offs, pidx, block_words=bw, n_probes=plan.n_probes)
+        return probe_kernel.probe_planned_bits(words, plan)
 
     def probe_plain():
-        return probe_ref.probe_planned_bits_ref(
-            words, bids, offs, pidx, block_words=bw, n_probes=plan.n_probes)
+        return probe_ref.probe_bits_and_ref(words, locs)
 
     got, want = probe_kernel_call(), probe_plain()
-    direct = probe_ref.query_membership_ref(
-        words, torch.as_tensor(locs, device=dev))
-    member = probe_ops.probe_membership(words, plan)
+    direct = torch.stack([probe_ref.query_membership_ref(words, locs[i])
+                          for i in range(b)])
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
-    check(err == 0 and torch.equal(member, direct),
+    check(err == 0 and torch.equal(got == 1, direct),
           "probe_planned_bits == plain at the flat filter's shapes")
-    lanes = valid_lanes(plan.offsets)
-    read_words = (plan.block_ids.astype(np.int64)[:, None] * bw
-                  + (plan.offsets >> 5)).reshape(-1)[lanes]
-    p_bytes = (sector_bytes(np.arange(plan.n_runs), 1)
-               + 2 * sector_bytes(lanes, 1)
-               + sector_bytes(np.unique(read_words), 1)
-               + sector_bytes(np.arange(plan.n_probes), 1))
+    # the bound charges the locations (8 B each, read once), the distinct
+    # sectors of the words they read and the answers written
+    read_words = np.unique(host_locs >> 5)
+    p_bytes = (8 * host_locs.size + sector_bytes(read_words, 1)
+               + 4 * b * n_k)
     probe = {
         "name": probe_kernel.BITS_NAME, "route": "cuda",
         "source": probe_kernel.BITS_SOURCE,
@@ -780,15 +863,22 @@ def flat_kernels_phase(cfg, g, dev) -> list:
         "library_ms": None,
     }
     GRAPH_MS[probe_kernel.BITS_NAME] = graph_ms(probe_kernel_call)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    GRAPH_MS[probe_kernel.BITS_NAME + " (L2 cold)"] = graph_ms_cold(
+        probe_kernel_call, functools.partial(scratch.fill_, 0))
+    del scratch
     print(f"phase 2e probe_planned_bits at serve shapes: ok (max_abs_err "
-          f"{err}, tolerance 0) — {plan.n_probes} probes in {plan.n_runs} "
-          f"runs (mean {plan.n_probes / plan.n_runs:.4f} probes/run, "
-          f"{np.unique(read_words).size} distinct words); kernel "
-          f"{probe['ms']:.6f} ms, plain {probe['plain_ms']:.6f} ms, bound "
-          f"{probe['bound_ms']:.6f} ms ({p_bytes} B; the plan's padded "
-          f"offsets and probe indices hold "
-          f"{plan.offsets.nbytes + plan.probe_index.nbytes} B, not "
-          f"charged); library: no single PyTorch call")
+          f"{err}, tolerance 0) — {plan.n_probes} probes, {b * n_k} keys of "
+          f"η {eta}, {read_words.size} distinct words in "
+          f"{sector_bytes(read_words, 1) // SECTOR} sectors; compact plan == "
+          f"the reference planner's counters ({plan.n_runs} runs, mean "
+          f"{plan.n_probes / plan.n_runs:.4f} probes/run); device_plan host "
+          f"wall ms {[round(1e3 * t, 3) for t in plan_s]}; kernel (bits and "
+          f"AND over η) {probe['ms']:.6f} ms (graph replay "
+          f"{GRAPH_MS[probe_kernel.BITS_NAME]:.6f} ms, L2 cold "
+          f"{GRAPH_MS[probe_kernel.BITS_NAME + ' (L2 cold)']:.6f} ms), plain "
+          f"{probe['plain_ms']:.6f} ms, bound {probe['bound_ms']:.6f} ms "
+          f"({p_bytes} B); library: no single PyTorch call")
 
     # a rounds plan: one insert batch's locations plus one block that
     # appears in several rounds
@@ -906,34 +996,54 @@ def flat_path_phase(cfg, g, dev) -> dict:
 
     reads = genome.extract_reads(g, FLAT_READ_LEN,
                                  SERVE_BATCHES * SERVE_BATCH, seed=1)
-    batch_ms, n_runs, n_probes = [], 0, 0
-    for r in range(SERVE_BATCHES):
-        batch = reads[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
-        t0 = time.perf_counter()
-        verdict = eng.msmt(batch, backend="idl_probe")
-        check(bool(verdict.all()), f"every genuine read of batch {r} matches")
-        batch_ms.append(1e3 * (time.perf_counter() - t0))
-        per_kmer = eng.query_batch(batch, backend="idl_probe")
-        blocs = packed.batch_locations(cfg, torch.as_tensor(batch,
-                                                            device=dev), "idl")
-        blocs = blocs.transpose(0, 1).reshape(cfg.eta, -1).cpu().numpy()
-        bplan = probe_ops.plan_probe_runs(blocs, cfg.L)
-        n_runs += bplan.n_runs
-        n_probes += bplan.n_probes
-        member = probe_ops.probe_membership(eng.words, bplan)
-        check(torch.equal(member.view(per_kmer.shape), per_kmer),
-              f"probe_membership == query_batch on batch {r}")
-    poisoned = genome.poison_queries(reads[:SERVE_BATCH], seed=2)
-    n_false = int((~eng.msmt(poisoned, backend="idl_probe")).sum())
-    svc = GeneSearchService(eng, ServiceConfig(
-        theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
-    results = svc.search(list(reads[:SERVE_BATCH]))
+    ingest_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms, n_runs, n_probes, queries = [], 0, 0, 0
+    with counting_calls(probe_ops, "plan_probe_runs") as qplanner:
+        for r in range(SERVE_BATCHES):
+            batch = reads[r * SERVE_BATCH:(r + 1) * SERVE_BATCH]
+            t0 = time.perf_counter()
+            verdict = eng.msmt(batch, backend="idl_probe")
+            check(bool(verdict.all()),
+                  f"every genuine read of batch {r} matches")
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+            per_kmer = eng.query_batch(batch, backend="idl_probe")
+            blocs = packed.batch_locations(
+                cfg, torch.as_tensor(batch, device=dev), "idl")
+            blocs = blocs.transpose(0, 1).reshape(cfg.eta, -1)
+            cplan = probe_ops.compact_probe_plan(blocs, cfg.L)
+            member = probe_ops.probe_membership(eng.words, cplan)
+            n_runs += cplan.n_runs
+            n_probes += cplan.n_probes
+            queries += 3
+            check(torch.equal(member.view(per_kmer.shape), per_kmer),
+                  f"probe_membership of the compact plan == query_batch on "
+                  f"batch {r}")
+        poisoned = genome.poison_queries(reads[:SERVE_BATCH], seed=2)
+        n_false = int((~eng.msmt(poisoned, backend="idl_probe")).sum())
+        svc = GeneSearchService(eng, ServiceConfig(
+            theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
+        results = svc.search(list(reads[:SERVE_BATCH]))
+        queries += 2
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    check(qplanner[0] == 0, "no numpy probe planner on the flat serve path")
     check(all(r.file_ids == (0,) for r in results),
           "the service finds every genuine read of one batch")
-    torch.cuda.synchronize()
-    launches = read_launches()
+    # the reference's run plan of the last batch, through probe_membership
+    bplan = probe_ops.plan_probe_runs(blocs.cpu().numpy(), cfg.L)
+    check((bplan.n_runs, bplan.n_probes) == (cplan.n_runs, cplan.n_probes)
+          and torch.equal(probe_ops.probe_membership(eng.words, bplan)
+                          .view(per_kmer.shape), per_kmer),
+          "probe_membership of the reference's run plan == query_batch")
     for name, count in launches.items():
-        check(count > 0, f"{name} launched on the flat-filter path")
+        if name != "gather_planned_rows":
+            check(count > 0, f"{name} launched on the flat-filter path")
+    check(launches["probe_planned_bits"] == queries
+          and launches["gather_planned_rows"] == 0,
+          f"probe_planned_bits launched once per flat query ({queries}), "
+          f"gather_planned_rows never")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
     # direct location calls: the legacy path's and each batch's probe plan
@@ -956,15 +1066,18 @@ def flat_path_phase(cfg, g, dev) -> dict:
           f"filters equal word for word; fill "
           f"{float(eng.fill_fraction):.6f}; serve {SERVE_BATCHES} x "
           f"{SERVE_BATCH} reads, msmt batch ms "
-          f"{[round(b, 3) for b in batch_ms]}, all true; probe_membership "
-          f"== query_batch on every batch; IDL probe plans {n_runs} runs for "
-          f"{n_probes} probes (mean {n_probes / n_runs:.4f} probes/run); "
+          f"{[round(b, 3) for b in batch_ms]}, all true (numpy probe "
+          f"planner calls 0; probe_planned_bits once per query, {queries}); "
+          f"probe_membership of the compact plan == query_batch on every "
+          f"batch, and of the reference's run plan on the last; IDL probe "
+          f"plans {n_runs} runs for {n_probes} probes (mean "
+          f"{n_probes / n_runs:.4f} probes/run); "
           f"poisoned reads false {n_false}/{SERVE_BATCH}; service batch "
           f"all matched; planner runs/probes insert "
           f"{runs['insert'][0]:.0f}/{runs['insert'][1]:.0f} query "
           f"{runs['query'][0]:.0f}/{runs['query'][1]:.0f}; launches "
-          f"{json.dumps(launches)}; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B")
+          f"{json.dumps(launches)}; max_memory_allocated ingest and legacy "
+          f"{ingest_peak} B, serve {serve_peak} B")
     print("phase 4 where the time goes (host ms per batch, means over the "
           "flat path's run; the query stages also time the query_batch "
           "checks): " + json.dumps(stages, sort_keys=True))

@@ -1,31 +1,33 @@
-// probe_planned_bits: the flat Bloom filter's planned bit probe.
+// probe_planned_bits: the flat Bloom filter's bit probe with the AND over
+// eta.
 //
 // Replaces the TPU kernel repro/kernels/idl_probe/kernel.py::probe_runs
-// (body _probe_kernel) together with the probe-order scatter of
-// repro/kernels/idl_probe/ops.py::scatter_and_reduce. For each run r of a
-// ProbePlan over bit locations and each valid lane c (offset o >= 0), it
-// writes bit (o & 31) of word block_ids[r] * block_words + (o >> 5) of the
-// packed filter to out[probe_index[r, c]]. The result is the (n_probes,)
-// bits in probe order; the AND over the eta repetitions stays in torch, as
-// the reference keeps it outside its kernel. Every probe index appears in
-// exactly one valid lane, so the output needs no initialisation and pad
-// lanes write nothing (the TPU kernel's "pad lanes read 1" is not needed).
+// (body _probe_kernel) together with what the reference does after it: the
+// probe-order scatter and AND over eta of repro/kernels/idl_probe/ops.py::
+// scatter_and_reduce, and, on the flat filter's query plan, the bit
+// extraction and AND of repro/index/query.py::_finish_probe. For every key
+// (b, k) of a (B, eta, n_k) int64 tensor of bit locations over a packed
+// (n_rows, W) int32 matrix (W = 1: the flat filter's words) it writes
+// out[b, k, w] = AND over e of bit (loc & 31) of word w of row loc >> 5,
+// where loc = locs[b, e, k]: one {0, 1} int32 per key and word. No run
+// plan, pad lane or probe index reaches it.
 //
 // What bounds it on an H100: bytes, and the latency of scattered 4-byte
 // reads. A 256-read batch makes 204,800 probes into a 512 MiB filter, ten
-// times the L2; each probe needs one 32-byte sector of the filter, and the
-// plan's offsets and probe indices one sector per eight valid lanes.
+// times the L2: each probe needs one 32-byte sector of the filter (fewer
+// when probes share one), each location 8 bytes and each key's answer 4.
 //
-// What the design does about it: one warp per run. Pad lanes trail the
-// valid ones in every run (the planner fills a run from lane 0), so the warp
-// reads the run's first 8 offsets (one sector), then 32 at a time, and stops
-// at the first step that holds a pad lane (a ballot); the padding is never
-// read. Each lane loads its one word straight from device memory. No tile
-// is staged in shared memory: the block is L bits (4 KiB, 128 sectors at
-// L = 2^15) and a run holds at most C = 128 probes, so staging the block
-// never reads less than the probes do; probes of one run that share a
-// sector meet in L1 and L2. Word offsets are 64-bit: at m = 2^32 the filter
-// has 2^27 words.
+// What the design does about it: one thread per key, grid-strided, its eta
+// location loads issued together and then its eta word loads, all
+// independent (unrolled by four). Threads follow key order, so the
+// neighbouring k-mers of one read sit in neighbouring lanes, and their
+// locations are one coalesced load per repetition. That is the design's
+// reason: IDL puts a read's neighbouring k-mers in one L-bit window (8.21
+// probes per 4 KiB block on the flat IDL plans), so the lanes of one warp
+// load instruction land in few sectors and the card merges them, where the
+// TPU needed a run plan to bring that block in once. No tile is staged in
+// shared memory: a warp's probes of one block touch a few of its 128
+// sectors. Word offsets are 64-bit: at m = 2^32 the filter has 2^27 words.
 
 #include <cstdint>
 
@@ -33,57 +35,73 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kFirstSpan = 8;  // lanes of a run's first step: one sector
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kStep = 4;  // repetitions whose loads are in flight together
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-probe_planned_bits_kernel(const unsigned* __restrict__ bf_words,
-                          const int32_t* __restrict__ block_ids,
-                          const int32_t* __restrict__ offsets,
-                          const int32_t* __restrict__ probe_index,
-                          int32_t* __restrict__ out, int n_runs,
-                          int probes_per_run, int64_t block_words) {
-  const int lane = threadIdx.x & 31;
-  const int run = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (run >= n_runs) return;  // the whole warp leaves together
-  const unsigned* block =
-      bf_words + static_cast<int64_t>(block_ids[run]) * block_words;
-  const int64_t first = static_cast<int64_t>(run) * probes_per_run;
-  // steps of 8, then 24, then 32 lanes: each after the first is aligned
-  for (int c0 = 0, span = kFirstSpan; c0 < probes_per_run;
-       c0 += span, span = 32 - (c0 & 31)) {
-    const int c = c0 + lane;
-    const int off =
-        lane < span && c < probes_per_run ? offsets[first + c] : -1;
-    if (off >= 0)
-      out[probe_index[first + c]] =
-          static_cast<int32_t>((block[off >> 5] >> (off & 31)) & 1u);
-    // a pad lane (or the run's end) in this step: nothing valid follows
-    if (__ballot_sync(kFullMask, off >= 0) !=
-        (span == 32 ? kFullMask : (1u << span) - 1u))
-      break;
+__global__ void __launch_bounds__(kThreads)
+probe_bits_kernel(const unsigned* __restrict__ words,
+                  const long long* __restrict__ locs, int32_t* __restrict__ out,
+                  long long n_keys, int n_k, int eta, int row_words) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long key = static_cast<long long>(blockIdx.x) * kThreads +
+                       threadIdx.x;
+       key < n_keys; key += stride) {
+    const long long* loc = locs + (key / n_k) * eta * n_k + key % n_k;
+    for (int w = 0; w < row_words; ++w) {  // one word on the flat filter
+      unsigned acc = 1u;
+      for (int e0 = 0; e0 < eta; e0 += kStep) {
+        long long l[kStep];
+        unsigned v[kStep];
+#pragma unroll
+        for (int i = 0; i < kStep; ++i)
+          l[i] = e0 + i < eta ? __ldg(loc + static_cast<long long>(e0 + i) *
+                                                n_k)
+                              : -1;
+#pragma unroll
+        for (int i = 0; i < kStep; ++i)
+          v[i] = l[i] >= 0
+                     ? __ldg(words + (l[i] >> 5) * row_words + w) >> (l[i] & 31)
+                     : 1u;
+#pragma unroll
+        for (int i = 0; i < kStep; ++i) acc &= v[i];
+      }
+      out[key * row_words + w] = static_cast<int32_t>(acc & 1u);
+    }
   }
+}
+
+// Blocks that fill the card once (every SM at its occupancy), for the
+// grid-stride loop; computed once.
+int resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_bits_kernel,
+                                                  kThreads, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return blocks;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int probe_planned_bits(const void* bf_words, const void* block_ids,
-                                  const void* offsets,
-                                  const void* probe_index, void* out,
-                                  int n_runs, int probes_per_run,
-                                  long long block_words, void* stream) {
-  if (n_runs > 0) {
-    const int blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    probe_planned_bits_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned*>(bf_words),
-        static_cast<const int32_t*>(block_ids),
-        static_cast<const int32_t*>(offsets),
-        static_cast<const int32_t*>(probe_index),
-        static_cast<int32_t*>(out), n_runs, probes_per_run,
-        static_cast<int64_t>(block_words));
+// out[b, k, w] = AND over e of bit locs[b, e, k] & 31 of word w of row
+// locs[b, e, k] >> 5, for the n_keys = B * n_k keys. Launches on `stream`;
+// returns cudaGetLastError() (0 on success).
+extern "C" int probe_planned_bits(const void* words, const void* locs,
+                                  void* out, long long n_keys, int n_k,
+                                  int eta, int row_words, void* stream) {
+  if (n_keys > 0) {
+    const long long wanted = (n_keys + kThreads - 1) / kThreads;
+    const long long cap = resident_blocks();
+    const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
+    probe_bits_kernel<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned*>(words),
+        static_cast<const long long*>(locs), static_cast<int32_t*>(out),
+        n_keys, n_k, eta, row_words);
   }
   return static_cast<int>(cudaGetLastError());
 }

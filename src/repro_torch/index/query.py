@@ -8,9 +8,12 @@ built once per geometry through an LRU cache (:func:`plan_query`).
 Executing a plan picks one of two backends:
 
 * ``"torch"``     — the plain gather (the port of the reference's ``"jnp"``);
-* ``"idl_probe"`` — the host-side run-length planner + the CUDA
-  ``gather_planned_rows`` kernel: the whole ``(B, η, n_kmers)`` batch is
-  one kernel launch (on a CPU matrix, the kernel's plain version).
+* ``"idl_probe"`` — the compact plan built on the matrix's device (the
+  batch's probe stream and the reference planner's counters) + one CUDA
+  kernel launch that gathers and ANDs over η: ``gather_planned_rows`` for
+  row probes, ``probe_planned_bits`` for bit probes (on a CPU matrix, the
+  kernel's plain version). The reference's numpy run planner stays as
+  :meth:`QueryPlan.plan_runs`, off this path.
 
 Both backends are bit-identical to each other and to the reference
 (``tests/test_torch_index.py``).
@@ -29,7 +32,9 @@ import torch
 from repro_torch.core import idl as idl_mod
 from repro_torch.core.hashing import to_int32_bits
 from repro_torch.index import packed
+from repro_torch.kernels.idl_probe import kernel as probe_kernel
 from repro_torch.kernels.idl_probe import ops as probe_ops
+from repro_torch.kernels.idl_probe.ref import and_reduce
 from repro_torch.obs import metrics as obs_metrics
 
 BACKENDS = ("torch", "idl_probe")
@@ -77,15 +82,13 @@ def record_stage(op: str, stage: str, t0: float) -> float:
     reading) to the ``planner.stage_ms`` histogram of (op, stage); returns
     the current reading, the next stage's ``t0``.
 
-    The planned backends time three stages of every batch. A query:
-    ``locations`` (hashing on the device and the copy to the host, which
-    waits for it), ``host_plan`` (the numpy planner) and
-    ``upload_and_launch`` (the plan arrays to the device and the kernel's
-    launch; the kernel itself runs on asynchronously). An insert:
-    ``locations`` (the hashing and the flat positions enqueued on the
-    device; no wait), ``device_plan`` (the compact plan's sort and counts
-    on the matrix's device; the host waits for the hashing and the sort)
-    and ``launch`` (the kernel's launch, with no wait)."""
+    The planned backends time three stages of every batch, a query's and
+    an insert's of the same names: ``locations`` (the hashing enqueued on
+    the device; no wait), ``device_plan`` (the compact plan's counters on
+    the matrix's device; the host waits for the hashing and the plan: once
+    for a query, for its run count and bounds read together, four times
+    for an insert's sort and counts) and ``launch`` (the kernel's launch,
+    with no wait; the kernel itself runs on asynchronously)."""
     now = time.perf_counter()
     reg = obs_metrics.DEFAULT
     if reg.enabled:
@@ -112,19 +115,6 @@ def as_reads(reads, device) -> torch.Tensor:
         reads = torch.as_tensor(np.asarray(reads, dtype=np.uint8),
                                 device=device)
     return reads[None] if reads.dim() == 1 else reads
-
-
-def and_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Bitwise AND over axis ``dim`` (torch has no AND reduction): a
-    halving fold, log2(n) elementwise ANDs."""
-    x = x.movedim(dim, 0)
-    while x.shape[0] > 1:
-        half = x.shape[0] // 2
-        y = x[:half] & x[half:2 * half]
-        if x.shape[0] % 2:
-            y[0] &= x[-1]
-        x = y
-    return x[0]
 
 
 # ---------------------------------------------------------------------------
@@ -170,23 +160,38 @@ class QueryPlan:
         return (locs >> 5) if self.bit_probe else locs
 
     def plan_runs(self, reads: torch.Tensor):
-        """Host-side run-length plan for the whole batch (one launch).
+        """The reference's host-side run-length plan for the whole batch
+        (numpy; kept for parity, off the serve path).
 
         Returns ``(ProbePlan, locs)``: locs is the (B, η, n_kmers) location
         tensor the plan was built from, on the reads' device.
         """
-        t0 = time.perf_counter()
         locs = self.locations(reads)
         rows = self.row_indices(locs).cpu().numpy()
-        t0 = record_stage("query", "locations", t0)
         b, eta, n_k = rows.shape
         rplan = probe_ops.plan_probe_runs(
             rows.reshape(b * eta, n_k),
             block_bits=self.rows_per_block,
             probes_per_run=self.probes_per_run,
         )
-        record_stage("query", "host_plan", t0)
         return rplan, locs
+
+    def compact_plan(self, reads: torch.Tensor):
+        """The compact plan of the batch on the reads' device (what
+        ``idl_probe`` executes); times its ``locations`` and
+        ``device_plan`` stages. Its stream is the (B, η, n_kmers) row
+        indices, or the bit locations of a bit probe (then planned in
+        blocks of ``32 * rows_per_block`` bits: the same blocks, so the
+        same runs)."""
+        t0 = time.perf_counter()
+        locs = self.locations(reads)
+        t0 = record_stage("query", "locations", t0)
+        cplan = probe_ops.compact_probe_plan(
+            locs, block_bits=self.rows_per_block * (32 if self.bit_probe
+                                                    else 1),
+            probes_per_run=self.probes_per_run)
+        record_stage("query", "device_plan", t0)
+        return cplan
 
     def run_dma_bytes(self, rplan) -> int:
         """Total row-block bytes the plan covers (n_runs × block_bytes)."""
@@ -213,16 +218,18 @@ class QueryPlan:
             f"unknown query backend {backend!r} (want one of {BACKENDS})")
 
     def _execute_idl_probe(self, matrix, reads):
-        rplan, locs = self.plan_runs(reads)
+        cplan = self.compact_plan(reads)
         record_locality(
             scheme=self.scheme, op="query",
-            tile_bytes=self.run_dma_bytes(rplan), n_runs=rplan.n_runs,
-            n_probes=int(rplan.n_probes), run_lengths=rplan.run_lengths)
+            tile_bytes=self.run_dma_bytes(cplan), n_runs=cplan.n_runs,
+            n_probes=cplan.n_probes, run_lengths=cplan.run_lengths)
         t0 = time.perf_counter()
-        gathered = probe_ops.gather_planned_rows(matrix, rplan)
-        record_stage("query", "upload_and_launch", t0)
-        gathered = gathered.reshape(locs.shape + (self.row_words,))
-        return _finish_probe(gathered, locs, bit_probe=self.bit_probe)
+        if self.bit_probe:
+            out = probe_kernel.probe_planned_bits(matrix, cplan)
+        else:
+            out = probe_kernel.gather_planned_rows(matrix, cplan)
+        record_stage("query", "launch", t0)
+        return out
 
 
 def _pow2_block(n_rows: int, target: int) -> int:

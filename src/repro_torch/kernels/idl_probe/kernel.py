@@ -1,18 +1,27 @@
 """Wrappers of the CUDA kernels ``csrc/gather_planned_rows.cu`` and
-``csrc/probe_planned_bits.cu``.
+``csrc/probe_planned_bits.cu``, and their operand.
 
+Both kernels take the probe stream itself, a ``(..., η, n_k)`` int64 tensor
+in probe order, and write one answer per key: the AND over the η
+repetitions, which the reference computes after its kernel.
 ``gather_planned_rows`` replaces the Pallas kernel
-``repro/kernels/idl_probe/kernel.py::probe_rows`` and its ``gather_index``
-realignment; ``probe_planned_bits`` replaces the flat-filter Pallas kernel
-``probe_runs`` and the probe-order scatter of ``ops.scatter_and_reduce``.
-A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
+``repro/kernels/idl_probe/kernel.py::probe_rows`` (rows of a packed
+matrix); ``probe_planned_bits`` replaces the flat-filter Pallas kernel
+``probe_runs`` (bits of the packed words). No run plan, pad lane or probe
+index reaches the card. The main path's operand is a
+:class:`CompactProbePlan`, which holds the stream with its smallest and
+largest element on the host; a bare tensor's are read from the device. A
+CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -32,90 +41,150 @@ BITS_REPLACES = "src/repro/kernels/idl_probe/kernel.py:149"
 launches = 0        # gather_planned_rows
 bits_launches = 0   # probe_planned_bits
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BITS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-    ctypes.c_longlong, ctypes.c_void_p]
+# the C entry points' arguments, the stream last
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BITS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def gather_planned_rows(
-    matrix: torch.Tensor,
-    block_ids: torch.Tensor,
-    offsets: torch.Tensor,
-    probe_index: torch.Tensor,
-    *,
-    rows_per_block: int,
-    n_probes: int,
-) -> torch.Tensor:
-    """(n_probes, W) int32 rows of ``matrix`` in probe order.
+@dataclasses.dataclass
+class CompactProbePlan:
+    """A batch's probe stream on the device, with the reference planner's
+    counters (built by ``ops.compact_probe_plan``)."""
 
-    ``matrix`` (n_rows, W) int32; ``block_ids`` (R,), ``offsets`` and
-    ``probe_index`` (R, C) int32, as a ``ProbePlan`` lays them out: in each
-    run the -1 pad lanes trail the valid ones (the kernel stops a run at
-    its first pad lane).
+    rows: torch.Tensor        # (..., n) int64 probe stream, the kernels'
+                              # operand: row indices, or bit locations for
+                              # a bit probe; leading dims are the streams
+    n_probes: int
+    n_runs: int               # runs of <= C probes (the planner's)
+    eta: int                  # streams, P (the planner's name)
+    n_keys: int               # probes per stream, n
+    min_row: Optional[int]    # smallest and largest element, on the host
+    max_row: Optional[int]    # (None when the stream is empty)
+    block_bits: int
+    probes_per_run: int
+
+    def run_lengths(self) -> np.ndarray:
+        """(n_runs,) int32 probes per run in the planner's run order. Built
+        on demand (a device pass and a copy to the host): the telemetry
+        asks only on the batches its histogram samples."""
+        starts = torch.nonzero(run_starts(
+            self.rows, self.block_bits, self.probes_per_run))[:, 0]
+        ends = torch.cat([starts[1:], starts.new_tensor([self.n_probes])])
+        return (ends - starts).to(torch.int32).cpu().numpy()
+
+
+def run_starts(rows: torch.Tensor, block_bits: int,
+               probes_per_run: int) -> torch.Tensor:
+    """Flat bool mask of the probes that open a run of the (..., n) stream
+    ``rows``, on its device: the reference planner's arithmetic. A run
+    starts at each stream's start and wherever the block (``rows //
+    block_bits``) changes, and is split every ``probes_per_run`` probes."""
+    flat = rows.reshape(-1)
+    if flat.numel() == 0:
+        return torch.zeros_like(flat, dtype=torch.bool)
+    blocks = flat // block_bits
+    idx = torch.arange(flat.numel(), device=flat.device)
+    start = torch.ones_like(flat, dtype=torch.bool)
+    start[1:] = blocks[1:] != blocks[:-1]
+    start[::rows.shape[-1]] = True           # a run never crosses streams
+    pos_in_run = idx - torch.cummax(torch.where(start, idx, 0), 0).values
+    return pos_in_run % probes_per_run == 0
+
+
+def gather_planned_rows(matrix: torch.Tensor,
+                        operand: torch.Tensor | CompactProbePlan
+                        ) -> torch.Tensor:
+    """``out[..., k, :] = AND_e matrix[rows[..., e, k], :]``: the
+    ``(..., n_k, W)`` int32 AND over η of the rows of the ``(n_rows, W)``
+    int32 ``matrix`` that a ``(..., η, n_k)`` int64 row tensor names.
+
+    The operand is a :class:`CompactProbePlan` (the main path's: its
+    smallest and largest row on the host) or a bare row tensor, whose
+    bounds are read from the device. A row outside the matrix raises before
+    anything is launched.
     """
+    rows, bounds = _operand(operand)
+    _check(NAME, matrix, (2,), rows, bounds, matrix.shape[0])
     if matrix.device.type == "cpu":
-        return ref.gather_planned_rows_ref(
-            matrix, block_ids, offsets, probe_index,
-            rows_per_block=rows_per_block, n_probes=n_probes)
-    build.check_operands(NAME, matrix=matrix, block_ids=block_ids,
-                         offsets=offsets, probe_index=probe_index)
-    n_runs, c = offsets.shape
-    if matrix.dim() != 2 or block_ids.shape != (n_runs,) or \
-            probe_index.shape != (n_runs, c):
-        raise ValueError(
-            f"{NAME}: bad shapes matrix {tuple(matrix.shape)}, block_ids "
-            f"{tuple(block_ids.shape)}, offsets {tuple(offsets.shape)}, "
-            f"probe_index {tuple(probe_index.shape)}")
-    out = torch.empty((n_probes, matrix.shape[1]), dtype=torch.int32,
-                      device=matrix.device)
-    if n_runs == 0:
-        return out
-    build.launch(NAME, _ARGTYPES, matrix.device, matrix.data_ptr(),
-                 block_ids.data_ptr(), offsets.data_ptr(),
-                 probe_index.data_ptr(), out.data_ptr(), n_runs, c,
-                 rows_per_block, matrix.shape[1])
-    global launches
-    launches += 1
+        return ref.gather_and_ref(matrix, rows)
+    w = matrix.shape[1]
+    out = _out(matrix, rows)
+    if out.numel():
+        vector = w % 4 == 0 and matrix.data_ptr() % 16 == 0
+        build.launch(NAME, _ARGTYPES, matrix.device, matrix.data_ptr(),
+                     rows.data_ptr(), out.data_ptr(), out.numel() // w,
+                     rows.shape[-1], rows.shape[-2], w, int(vector))
+        global launches
+        launches += 1
     return out
 
 
-def probe_planned_bits(
-    bf_words: torch.Tensor,
-    block_ids: torch.Tensor,
-    offsets: torch.Tensor,
-    probe_index: torch.Tensor,
-    *,
-    block_words: int,
-    n_probes: int,
-) -> torch.Tensor:
-    """(n_probes,) int32 bits of the packed flat filter in probe order.
+def probe_planned_bits(words: torch.Tensor,
+                       operand: torch.Tensor | CompactProbePlan
+                       ) -> torch.Tensor:
+    """``out[..., k, w] = AND_e bit (loc & 31) of words[loc >> 5, w]`` with
+    ``loc = locs[..., e, k]``: the ``(..., n_k)`` int32 {0, 1} answers of
+    the packed ``(n_words,)`` int32 flat filter (``(..., n_k, W)`` of an
+    ``(n_rows, W)`` matrix) for a ``(..., η, n_k)`` int64 tensor of bit
+    locations.
 
-    ``bf_words`` (n_words,) int32; ``block_ids`` (R,), ``offsets`` (bit
-    offsets in a ``32 * block_words``-bit block) and ``probe_index`` (R, C)
-    int32, as a ``ProbePlan`` over bit locations lays them out: in each run
-    the -1 pad lanes trail the valid ones (the kernel stops a run at its
-    first pad lane), and every probe index lies in exactly one valid lane.
+    The operand is a :class:`CompactProbePlan` or a bare tensor, as for
+    :func:`gather_planned_rows`; a location past the words raises before
+    anything is launched.
     """
-    if bf_words.device.type == "cpu":
-        return ref.probe_planned_bits_ref(
-            bf_words, block_ids, offsets, probe_index,
-            block_words=block_words, n_probes=n_probes)
-    build.check_operands(BITS_NAME, bf_words=bf_words, block_ids=block_ids,
-                         offsets=offsets, probe_index=probe_index)
-    n_runs, c = offsets.shape
-    if bf_words.dim() != 1 or block_ids.shape != (n_runs,) or \
-            probe_index.shape != (n_runs, c):
-        raise ValueError(
-            f"{BITS_NAME}: bad shapes bf_words {tuple(bf_words.shape)}, "
-            f"block_ids {tuple(block_ids.shape)}, offsets "
-            f"{tuple(offsets.shape)}, probe_index {tuple(probe_index.shape)}")
-    out = torch.empty((n_probes,), dtype=torch.int32, device=bf_words.device)
-    if n_runs == 0:
-        return out
-    build.launch(BITS_NAME, _BITS_ARGTYPES, bf_words.device,
-                 bf_words.data_ptr(), block_ids.data_ptr(),
-                 offsets.data_ptr(), probe_index.data_ptr(), out.data_ptr(),
-                 n_runs, c, block_words)
-    global bits_launches
-    bits_launches += 1
+    locs, bounds = _operand(operand)
+    _check(BITS_NAME, words, (1, 2), locs, bounds, 32 * words.shape[0])
+    if words.device.type == "cpu":
+        return ref.probe_bits_and_ref(words, locs)
+    out = _out(words, locs)
+    if out.numel():
+        w = words.shape[1] if words.dim() == 2 else 1
+        build.launch(BITS_NAME, _BITS_ARGTYPES, words.device,
+                     words.data_ptr(), locs.data_ptr(), out.data_ptr(),
+                     out.numel() // w, locs.shape[-1], locs.shape[-2], w)
+        global bits_launches
+        bits_launches += 1
     return out
+
+
+def _operand(operand):
+    """(stream, (min, max) or None) of a plan or a bare tensor."""
+    if isinstance(operand, CompactProbePlan):
+        return operand.rows, (operand.min_row, operand.max_row)
+    return operand, None
+
+
+def _check(name: str, matrix: torch.Tensor, ndims: tuple, rows: torch.Tensor,
+           bounds, limit: int) -> None:
+    """Raise unless ``matrix`` has one of ``ndims`` dims and ``rows`` is an
+    int64 tensor of at least two dims on its device whose elements
+    (``bounds`` when the caller holds them, else read from the device) lie
+    in ``[0, limit)``; on a CUDA matrix both must also be contiguous, the
+    matrix int32."""
+    if matrix.dim() not in ndims or rows.dim() < 2 or \
+            rows.dtype != torch.int64 or rows.device != matrix.device:
+        raise ValueError(
+            f"{name}: want a {ndims}-D matrix and (..., eta, n_k) int64 "
+            f"probes on its device, got matrix {tuple(matrix.shape)} on "
+            f"{matrix.device}, probes {tuple(rows.shape)} {rows.dtype} on "
+            f"{rows.device}")
+    if matrix.device.type != "cpu":
+        build.check_operands(name, matrix=matrix)
+        if not rows.is_contiguous():
+            raise ValueError(f"{name}: probes must be contiguous")
+    if rows.numel() == 0:
+        return
+    lo, hi = bounds if bounds is not None else \
+        torch.stack([rows.min(), rows.max()]).tolist()
+    if lo < 0 or hi >= limit:
+        raise ValueError(f"{name}: probes span [{lo}, {hi}], outside "
+                         f"[0, {limit})")
+
+
+def _out(matrix: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The answers' tensor: ``rows.shape[:-2] + (n_k,) + matrix.shape[1:]``
+    int32 on the matrix's device."""
+    return torch.empty(rows.shape[:-2] + rows.shape[-1:] + matrix.shape[1:],
+                       dtype=torch.int32, device=matrix.device)

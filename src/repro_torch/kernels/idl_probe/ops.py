@@ -1,22 +1,31 @@
-"""Host-side probe planner + executors of the ``gather_planned_rows`` and
+"""Probe planners and executors of the ``gather_planned_rows`` and
 ``probe_planned_bits`` kernels.
 
-The planner is the reference's, verbatim (numpy): it run-length-encodes
-the probe stream by block and emits fixed-shape run arrays.
-:func:`gather_planned_rows` executes a row plan on a matrix and
-:func:`probe_membership` a bit plan on a flat filter: each kernel writes
-every probe's answer straight into probe order, so the TPU path's
-``(R_pad, C, ...)`` intermediates and its pow2 run padding are gone.
+Both kernels take the probe stream in probe order and AND over η
+themselves, so no run plan reaches the card.
+
+* :func:`compact_probe_plan` — the serve path's plan, built on the
+  matrix's device with torch ops alone: the stream itself (the kernels'
+  operand) and the reference planner's counters (``n_runs``, ``n_probes``,
+  :meth:`CompactProbePlan.run_lengths`), so the locality telemetry stays
+  the reference's; one host wait.
+* :func:`plan_probe_runs` — the reference's numpy planner, verbatim and
+  held by its parity tests; off the serve path. :func:`gather_planned_rows`
+  and :func:`probe_membership` execute its plans all the same: their valid
+  lanes go back into probe order on the device (:func:`probe_order`) and
+  one kernel launch follows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.idl_probe import kernel, ref
+from repro_torch.kernels.idl_probe.kernel import CompactProbePlan
 
 
 @dataclasses.dataclass
@@ -102,21 +111,56 @@ def plan_probe_runs(
     )
 
 
-def _plan_arrays(plan: ProbePlan, n_blocks: int, device):
-    """The plan's block ids, offsets and probe indices on ``device``;
-    raises if a run names a block past the last of ``n_blocks``."""
+def compact_probe_plan(
+    rows: torch.Tensor, block_bits: int, probes_per_run: int = 128
+) -> CompactProbePlan:
+    """The compact plan of a (..., n) int64 probe stream, on its device.
+
+    ``rows`` holds row indices (``block_bits`` = rows per block) or bit
+    locations (``block_bits`` = bits per block); leading dims are streams,
+    planned independently as :func:`plan_probe_runs` plans them, so the
+    run count and run lengths equal its own. The stream is never copied to
+    the host: on a CUDA tensor the host waits once, for the run count and
+    the smallest and largest element, read together.
+    """
+    rows = rows.to(torch.int64)
+    if rows.dim() == 1:
+        rows = rows[None]
+    rows = rows.contiguous()
+    n_runs, lo, hi = 0, None, None
+    if rows.numel():
+        n_runs, lo, hi = torch.stack([
+            kernel.run_starts(rows, block_bits, probes_per_run).sum(),
+            rows.min(), rows.max()]).tolist()
+    return CompactProbePlan(
+        rows=rows, n_probes=rows.numel(), n_runs=n_runs,
+        eta=math.prod(rows.shape[:-1]), n_keys=rows.shape[-1], min_row=lo,
+        max_row=hi, block_bits=block_bits, probes_per_run=probes_per_run)
+
+
+def probe_order(plan: ProbePlan, n_blocks: int, device) -> torch.Tensor:
+    """The (eta, n_keys) int64 probe stream a run plan encodes, on
+    ``device``: ``block_ids[r] * block_bits + offsets[r, c]`` at
+    ``probe_index[r, c]`` for every valid lane (pad lanes are -1); raises
+    if a run names a block past the last of ``n_blocks``."""
     if plan.n_runs and int(plan.block_ids.max()) >= n_blocks:
         raise ValueError("plan names a block outside the matrix")
-    return [torch.as_tensor(a, device=device)
-            for a in (plan.block_ids, plan.offsets, plan.probe_index)]
+    bids, offs, pidx = (torch.as_tensor(a, device=device) for a in
+                        (plan.block_ids, plan.offsets, plan.probe_index))
+    valid = offs >= 0
+    stream = torch.empty((plan.n_probes,), dtype=torch.int64, device=device)
+    stream[pidx[valid].to(torch.int64)] = \
+        (bids.to(torch.int64)[:, None] * plan.block_bits + offs)[valid]
+    return stream.view(plan.eta, plan.n_keys)
 
 
 def gather_planned_rows(matrix: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
     """Execute a row plan; return (n_probes, W) int32 rows in probe order.
 
     ``plan.block_bits`` is read as rows-per-block. ``matrix`` may be 1-D
-    when ``W == 1``. One kernel launch on a CUDA matrix; the plain version
-    on a CPU one.
+    when ``W == 1``. The plan's rows go back into probe order and the row
+    kernel gathers them as keys of one repetition each (one launch on a
+    CUDA matrix; the plain version on a CPU one).
     """
     w = int(matrix.shape[-1]) if matrix.dim() > 1 else 1
     matrix = matrix.reshape(-1, w)
@@ -124,26 +168,24 @@ def gather_planned_rows(matrix: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
     if matrix.shape[0] % rpb:
         raise ValueError(
             f"rows_per_block={rpb} must divide n_rows={matrix.shape[0]}")
-    bids, offs, pidx = _plan_arrays(plan, matrix.shape[0] // rpb,
-                                    matrix.device)
-    return kernel.gather_planned_rows(matrix, bids, offs, pidx,
-                                      rows_per_block=rpb,
-                                      n_probes=plan.n_probes)
+    rows = probe_order(plan, matrix.shape[0] // rpb, matrix.device)
+    return kernel.gather_planned_rows(matrix, rows.reshape(1, -1))
 
 
-def probe_membership(bf_words: torch.Tensor, plan: ProbePlan) -> torch.Tensor:
-    """Execute a bit plan on the packed (n_words,) int32 flat filter;
-    return (n_keys,) bool membership (AND over η). One kernel launch on a
-    CUDA filter; the plain version on a CPU one."""
-    block_words = plan.block_bits // 32
-    if bf_words.shape[0] % block_words:
-        raise ValueError("bf length must be a multiple of block_words")
-    bids, offs, pidx = _plan_arrays(
-        plan, bf_words.shape[0] // block_words, bf_words.device)
-    bits = kernel.probe_planned_bits(
-        bf_words, bids, offs, pidx, block_words=block_words,
-        n_probes=plan.n_probes)
-    return (bits.view(plan.eta, plan.n_keys) == 1).all(dim=0)
+def probe_membership(bf_words: torch.Tensor,
+                     plan: ProbePlan | CompactProbePlan) -> torch.Tensor:
+    """Probe the packed (n_words,) int32 flat filter at a plan's bit
+    locations; return (n_keys,) bool membership (AND over η). A run plan's
+    lanes go back into probe order first; a compact plan is the stream
+    itself. One kernel launch on a CUDA filter; the plain version on a CPU
+    one."""
+    if isinstance(plan, ProbePlan):
+        block_words = plan.block_bits // 32
+        if bf_words.shape[0] % block_words:
+            raise ValueError("bf length must be a multiple of block_words")
+        plan = probe_order(plan, bf_words.shape[0] // block_words,
+                           bf_words.device)
+    return kernel.probe_planned_bits(bf_words, plan) == 1
 
 
 def scatter_and_reduce(bits: torch.Tensor, plan: ProbePlan) -> torch.Tensor:

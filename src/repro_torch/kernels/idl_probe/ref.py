@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the ``gather_planned_rows`` and
-``probe_planned_bits`` kernels, and the flat-filter probe oracles."""
+``probe_planned_bits`` kernels, the reference's run-plan probe layout, and
+the flat-filter probe oracle."""
 
 from __future__ import annotations
 
@@ -8,23 +9,38 @@ import torch
 from repro_torch.core import bloom
 
 
-def gather_planned_rows_ref(
-    matrix: torch.Tensor,
-    block_ids: torch.Tensor,
-    offsets: torch.Tensor,
-    probe_index: torch.Tensor,
-    *,
-    rows_per_block: int,
-    n_probes: int,
-) -> torch.Tensor:
-    """(n_probes, W) rows in probe order: an index gather of every valid
-    lane's row, scattered to its ``probe_index`` slot (pad lanes, offset
-    -1, are skipped)."""
-    valid = offsets >= 0
-    rows = block_ids.to(torch.int64)[:, None] * rows_per_block + offsets
-    out = matrix.new_empty((n_probes, matrix.shape[1]))
-    out[probe_index[valid].to(torch.int64)] = matrix[rows[valid]]
-    return out
+def and_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise AND over axis ``dim`` (torch has no AND reduction): a
+    halving fold, log2(n) elementwise ANDs."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        y = x[:half] & x[half:2 * half]
+        if x.shape[0] % 2:
+            y[0] &= x[-1]
+        x = y
+    return x[0]
+
+
+def gather_and_ref(matrix: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(..., n_k, W): the AND over η of the rows of the (n_rows, W)
+    ``matrix`` that the (..., η, n_k) int64 ``rows`` name."""
+    return and_reduce(matrix[rows], dim=-3)
+
+
+def probe_bits_and_ref(words: torch.Tensor, locs: torch.Tensor
+                       ) -> torch.Tensor:
+    """(..., n_k) int32 {0, 1}: the AND over η of bit ``loc & 31`` of word
+    ``loc >> 5`` of the packed (n_words,) ``words``, for the (..., η, n_k)
+    int64 bit locations ``locs``; (..., n_k, W) of bit ``loc & 31`` of
+    every word of row ``loc >> 5`` of an (n_rows, W) matrix.
+    :func:`query_membership_ref` over (η, n) locations is the flat case."""
+    shift = locs & 31
+    if words.dim() == 2:
+        shift = shift[..., None]
+    bits = (words[locs >> 5] >> shift) & 1
+    return and_reduce(bits, dim=-3 if words.dim() == 2 else -2).to(
+        torch.int32)
 
 
 def probe_runs_ref(
@@ -53,23 +69,6 @@ def scatter_probe_order(bits: torch.Tensor, probe_index: torch.Tensor,
     valid = probe_index >= 0
     out[probe_index[valid].to(torch.int64)] = bits[valid].to(torch.int32)
     return out
-
-
-def probe_planned_bits_ref(
-    bf_words: torch.Tensor,
-    block_ids: torch.Tensor,
-    offsets: torch.Tensor,
-    probe_index: torch.Tensor,
-    *,
-    block_words: int,
-    n_probes: int,
-) -> torch.Tensor:
-    """(n_probes,) bits in probe order: :func:`probe_runs_ref` followed by
-    the probe-order scatter."""
-    bits = probe_runs_ref(bf_words, block_ids, offsets,
-                          block_words=block_words,
-                          probes_per_run=offsets.shape[1])
-    return scatter_probe_order(bits, probe_index, n_probes)
 
 
 def query_membership_ref(bf_words: torch.Tensor, locs: torch.Tensor

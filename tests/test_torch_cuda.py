@@ -36,11 +36,57 @@ def _matrix(rng, n_rows, w, device):
     return torch.as_tensor(m.astype(np.int32), device=device)
 
 
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 32, 33, 64, 160])
+@pytest.mark.parametrize("eta", [1, 3, 4])
+def test_gather_planned_rows_kernel_vs_plain(cuda, w, eta):
+    """The row kernel's AND over eta on every lane layout (16-byte units in
+    groups of 1, 8 or 16 lanes, or looped; 4-byte words in groups, or
+    looped), ragged n_k, a row at the matrix's last row; from a compact
+    plan and from a bare tensor."""
+    rng = np.random.default_rng(10 * w + eta)
+    n_rows = 1 << 10
+    matrix = _matrix(rng, n_rows, w, cuda)
+    rows = rng.integers(0, n_rows, size=(5, eta, 37))
+    rows[1] = np.sort(rng.integers(0, 64, size=(eta, 37)), axis=1)
+    rows[2, :, 0] = n_rows - 1
+    rows = torch.as_tensor(rows, device=cuda)
+    plan = probe_ops.compact_probe_plan(rows, 64)
+    before = probe_kernel.launches
+    got = probe_kernel.gather_planned_rows(matrix, plan)
+    bare = probe_kernel.gather_planned_rows(matrix, rows)
+    torch.cuda.synchronize()
+    assert probe_kernel.launches == before + 2
+    want = probe_ref.gather_and_ref(matrix, rows)
+    assert got.shape == (5, 37, w)
+    assert torch.equal(got, want) and torch.equal(bare, want)
+    assert torch.equal(got.cpu(), probe_ref.gather_and_ref(matrix.cpu(),
+                                                           rows.cpu()))
+
+
+def test_gather_planned_rows_misaligned_view(cuda):
+    """A matrix view 4 bytes past a 16-byte boundary takes the 4-byte word
+    path of the same kernel, and agrees with the plain version."""
+    rng = np.random.default_rng(4)
+    n_rows, w = 512, 32
+    base = _matrix(rng, n_rows * w + 1, 1, cuda).reshape(-1)
+    matrix = base[1:].view(n_rows, w)
+    assert matrix.is_contiguous() and matrix.data_ptr() % 16 == 4
+    rows = torch.as_tensor(rng.integers(0, n_rows, size=(3, 4, 50)),
+                           device=cuda)
+    before = probe_kernel.launches
+    got = probe_kernel.gather_planned_rows(matrix, rows)
+    torch.cuda.synchronize()
+    assert probe_kernel.launches == before + 1
+    assert torch.equal(got, probe_ref.gather_and_ref(matrix, rows))
+
+
 @pytest.mark.parametrize("n_rows,w,rpb,c", [
     (256, 3, 16, 32), (1 << 12, 1, 64, 128), (512, 8, 8, 64),
     (1 << 10, 32, 64, 128), (1 << 10, 33, 32, 40),
 ])
-def test_gather_planned_rows_kernel_vs_plain(cuda, n_rows, w, rpb, c):
+def test_gather_planned_rows_run_plan(cuda, n_rows, w, rpb, c):
+    """A run plan (the reference's layout, pad lanes and all) through its
+    rows put back into probe order: one launch, the rows in probe order."""
     rng = np.random.default_rng(n_rows + w)
     matrix = _matrix(rng, n_rows, w, cuda)
     rows = rng.integers(0, n_rows, size=(3, 97))
@@ -52,13 +98,25 @@ def test_gather_planned_rows_kernel_vs_plain(cuda, n_rows, w, rpb, c):
     got = probe_ops.gather_planned_rows(matrix, plan)
     torch.cuda.synchronize()
     assert probe_kernel.launches == before + 1
-    args = [torch.as_tensor(a, device=cuda) for a in
-            (plan.block_ids, plan.offsets, plan.probe_index)]
-    want = probe_ref.gather_planned_rows_ref(
-        matrix, *args, rows_per_block=rpb, n_probes=plan.n_probes)
-    assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy(),
                           matrix.cpu().numpy()[rows.reshape(-1)])
+
+
+def test_probe_kernels_empty_batch_no_launch(cuda):
+    """B = 0 (and n_k = 0) make no launch and return empty answers."""
+    matrix = torch.zeros((64, 32), dtype=torch.int32, device=cuda)
+    words = torch.zeros((64,), dtype=torch.int32, device=cuda)
+    before = (probe_kernel.launches, probe_kernel.bits_launches)
+    for shape in ((0, 4, 200), (3, 4, 0)):
+        rows = torch.zeros(shape, dtype=torch.int64, device=cuda)
+        plan = probe_ops.compact_probe_plan(rows, 8)
+        assert plan.n_runs == 0 and plan.max_row is None
+        out = probe_kernel.gather_planned_rows(matrix, plan)
+        assert out.shape == (shape[0], shape[2], 32)
+        bits = probe_kernel.probe_planned_bits(words, plan)
+        assert bits.shape == (shape[0], shape[2])
+    torch.cuda.synchronize()
+    assert (probe_kernel.launches, probe_kernel.bits_launches) == before
 
 
 @pytest.mark.parametrize("n_rows,w,rpb,c,n_bits", [
@@ -125,17 +183,25 @@ def test_insert_positions_kernel_vs_plain(cuda, w, sort):
 
 def test_kernels_reject_bad_operands(cuda):
     matrix = torch.zeros((64, 2), dtype=torch.int32, device=cuda)
-    ids = torch.zeros((1,), dtype=torch.int32, device=cuda)
     offs = torch.zeros((1, 32), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):                  # int32 positions
         ins_kernel.insert_planned(matrix, offs.to(torch.int32).reshape(-1))
     with pytest.raises(ValueError):                  # past the last word
         ins_kernel.insert_planned(matrix, torch.tensor([64 * 2 * 32],
                                                        device=cuda))
-    with pytest.raises(ValueError):
-        probe_kernel.gather_planned_rows(
-            matrix, ids.cpu(), offs.to(torch.int32), offs.to(torch.int32),
-            rows_per_block=8, n_probes=1)
+    rows = torch.zeros((1, 2, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):                  # rows on the host
+        probe_kernel.gather_planned_rows(matrix, rows.cpu())
+    with pytest.raises(ValueError):                  # int32 rows
+        probe_kernel.gather_planned_rows(matrix, rows.to(torch.int32))
+    with pytest.raises(ValueError):                  # past the last row
+        probe_kernel.gather_planned_rows(matrix, rows + 64)
+    with pytest.raises(ValueError):                  # not contiguous
+        probe_kernel.gather_planned_rows(matrix, rows.transpose(1, 2))
+    with pytest.raises(ValueError):                  # an int64 filter
+        probe_kernel.probe_planned_bits(matrix.to(torch.int64), rows)
+    with pytest.raises(ValueError):                  # past the last bit
+        probe_kernel.probe_planned_bits(matrix, rows + 64 * 2 * 32)
 
 
 def test_engine_backends_agree_on_cuda(cuda):
@@ -151,7 +217,9 @@ def test_engine_backends_agree_on_cuda(cuda):
     assert torch.equal(planned.words, plain.words)
     queries = np.concatenate(
         [reads[:8], rng.integers(0, 4, size=(8, 100), dtype=np.uint8)])
+    before = probe_kernel.launches
     a = planned.query_batch(queries, backend="idl_probe")
+    assert probe_kernel.launches == before + 1       # one launch per batch
     b = planned.query_batch(queries, backend="torch")
     assert torch.equal(a, b)
     assert planned.msmt(queries[:8]).cpu().numpy()[
@@ -247,6 +315,9 @@ def test_window_min_one_launch_per_minhash(cuda, form, shape, w):
                                    (1 << 18, 1 << 10, 64),
                                    (1 << 22, 1 << 15, 128)])
 def test_probe_planned_bits_kernel_vs_plain(cuda, m, L, c):
+    """probe_membership of a run plan (its lanes back in probe order) and
+    of the compact plan of the same locations: one launch each, equal to
+    each other and to the direct oracle."""
     rng = np.random.default_rng(m)
     words = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=m // 32)
                             .astype(np.int32), device=cuda)
@@ -255,20 +326,45 @@ def test_probe_planned_bits_kernel_vs_plain(cuda, m, L, c):
     locs[2] = np.sort(rng.integers(0, 3 * L, size=900))
     plan = probe_ops.plan_probe_runs(locs, block_bits=L, probes_per_run=c)
     assert (plan.offsets < 0).any()
+    tlocs = torch.as_tensor(locs, device=cuda)
+    cplan = probe_ops.compact_probe_plan(tlocs, L, c)
+    assert (cplan.n_runs, cplan.n_probes) == (plan.n_runs, plan.n_probes)
+    assert np.array_equal(cplan.run_lengths(), plan.run_lengths)
     before = probe_kernel.bits_launches
     got = probe_ops.probe_membership(words, plan)
-    args = [torch.as_tensor(a, device=cuda)
-            for a in (plan.block_ids, plan.offsets, plan.probe_index)]
-    bits = probe_kernel.probe_planned_bits(
-        words, *args, block_words=L // 32, n_probes=plan.n_probes)
+    compact = probe_ops.probe_membership(words, cplan)
+    bits = probe_kernel.probe_planned_bits(words, tlocs)
     torch.cuda.synchronize()
-    assert probe_kernel.bits_launches == before + 2
-    want = probe_ref.probe_planned_bits_ref(
-        words, *args, block_words=L // 32, n_probes=plan.n_probes)
-    assert torch.equal(bits, want)
-    direct = probe_ref.query_membership_ref(
-        words, torch.as_tensor(locs, device=cuda))
-    assert torch.equal(got, direct)
+    assert probe_kernel.bits_launches == before + 3
+    assert torch.equal(bits, probe_ref.probe_bits_and_ref(words, tlocs))
+    direct = probe_ref.query_membership_ref(words, tlocs)
+    assert torch.equal(got, direct) and torch.equal(compact, direct)
+    assert torch.equal(bits == 1, direct)
+
+
+@pytest.mark.parametrize("w", [1, 2, 32])
+@pytest.mark.parametrize("eta", [1, 3, 4])
+def test_probe_planned_bits_widths(cuda, w, eta):
+    """The bit kernel on (B, eta, n_k) locations over a 1-D filter (W = 1)
+    or an (n_rows, W) matrix, ragged n_k, bit 31 and the last bit
+    included, against the plain version."""
+    rng = np.random.default_rng(100 * w + eta)
+    n_rows = 1 << 12
+    matrix = _matrix(rng, n_rows, w, cuda)
+    matrix[torch.as_tensor(rng.random((n_rows, w)) < 0.7, device=cuda)] = -1
+    words = matrix.reshape(-1) if w == 1 else matrix
+    locs = rng.integers(0, 32 * n_rows, size=(6, eta, 41))
+    locs[:, :, ::3] |= 31
+    locs[5, :, 0] = 32 * n_rows - 1
+    locs = torch.as_tensor(locs, device=cuda)
+    before = probe_kernel.bits_launches
+    got = probe_kernel.probe_planned_bits(
+        words, probe_ops.compact_probe_plan(locs, 32 * 64))
+    torch.cuda.synchronize()
+    assert probe_kernel.bits_launches == before + 1
+    want = probe_ref.probe_bits_and_ref(words, locs)
+    assert got.shape == ((6, 41) if w == 1 else (6, 41, w))
+    assert torch.equal(got, want) and 0 < int(want.sum()) < want.numel()
 
 
 @pytest.mark.parametrize("m,L,c", [(1 << 20, 1 << 12, 128),
@@ -307,7 +403,11 @@ def test_flat_filter_backends_agree_on_cuda(cuda, scheme):
     assert torch.equal(planned.words.cpu(), host.words)
     queries = np.concatenate(
         [reads[:8], rng.integers(0, 4, size=(8, 230), dtype=np.uint8)])
+    before = probe_kernel.bits_launches, probe_kernel.launches
     a = planned.query_batch(queries, backend="idl_probe")
+    # the flat filter's query plan launches only the bit kernel
+    assert (probe_kernel.bits_launches, probe_kernel.launches) == \
+        (before[0] + 1, before[1])
     assert torch.equal(a, planned.query_batch(queries, backend="torch"))
     assert torch.equal(a.cpu(), host.query_batch(queries))
     assert planned.msmt(queries[:8]).all()

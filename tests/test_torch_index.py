@@ -93,6 +93,29 @@ def test_query_plan_runs_match_reference(rng, scheme):
     assert tp.run_dma_bytes(tr) == jp.run_dma_bytes(jr)
 
 
+@pytest.mark.parametrize("scheme", ["idl", "rh"])
+@pytest.mark.parametrize("bit_probe,w", [(False, 2), (True, 1)])
+def test_query_compact_plan_matches_reference_plan(rng, scheme, bit_probe, w):
+    """The serve path's compact plan (row indices, or bit locations planned
+    in blocks of 32 x rows_per_block bits) has the reference planner's run
+    count, probe count, run lengths and tile bytes."""
+    jc, tc = _cfgs()
+    reads = rng.integers(0, 4, size=(6, 120), dtype=np.uint8)
+    shape = (jc.m // 32, 1) if bit_probe else (jc.m, w)
+    jp = j_query.plan_query(jc, scheme, reads.shape, shape,
+                            bit_probe=bit_probe, lane32=True,
+                            probes_per_run=32)
+    tp = query.plan_query(tc, scheme, reads.shape, shape, bit_probe=bit_probe,
+                          lane32=True, device="cpu")
+    jr, jlocs = jp.plan_runs(jnp.asarray(reads))
+    cplan = tp.compact_plan(torch.from_numpy(reads))
+    np.testing.assert_array_equal(cplan.rows.numpy(), jlocs.astype(np.int64))
+    assert cplan.rows.shape == (6, jc.eta, 120 - jc.k + 1)
+    assert (cplan.n_runs, cplan.n_probes) == (jr.n_runs, jr.n_probes)
+    np.testing.assert_array_equal(cplan.run_lengths(), jr.run_lengths)
+    assert tp.run_dma_bytes(cplan) == jp.run_dma_bytes(jr) > 0
+
+
 # -- query execution ---------------------------------------------------------
 
 @pytest.mark.parametrize("scheme", ["idl", "rh"])
@@ -282,9 +305,7 @@ def test_planned_backends_record_locality_and_stage_times(rng, op):
     stages = {t_metrics.parse_label_key(lk)["stage"]: h for lk, h in
               t_snap["hists"]["planner.stage_ms"].items()
               if t_metrics.parse_label_key(lk)["op"] == op}
-    assert sorted(stages) == (
-        ["host_plan", "locations", "upload_and_launch"] if op == "query"
-        else ["device_plan", "launch", "locations"])
+    assert sorted(stages) == ["device_plan", "launch", "locations"]
     assert all(h["count"] == 1 and h["sum"] >= 0 for h in stages.values())
 
 

@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
+from repro.index import query as j_query  # noqa: E402
 from repro.kernels.idl_insert import ops as j_ins_ops  # noqa: E402
 from repro.kernels.idl_probe import ops as j_probe_ops  # noqa: E402
 from repro_torch.kernels.idl_insert import kernel as ins_kernel  # noqa: E402
@@ -94,13 +95,15 @@ def test_gather_planned_rows_plain_vs_reference(rng, n_rows, w, rpb, c):
 
 
 def test_gather_planned_rows_ref_direct(rng):
+    """The plain version straight on a run plan's rows, put back into probe
+    order as keys of one repetition each, against the reference's gather
+    through its jnp oracle."""
     words = _words(rng, 128, 4)
     plan = probe_ops.plan_probe_runs(rng.integers(0, 128, size=(2, 40)),
                                      block_bits=8, probes_per_run=16)
-    got = probe_ref.gather_planned_rows_ref(
-        _tw(words), torch.from_numpy(plan.block_ids),
-        torch.from_numpy(plan.offsets), torch.from_numpy(plan.probe_index),
-        rows_per_block=8, n_probes=plan.n_probes)
+    rows = probe_ops.probe_order(plan, 16, "cpu")
+    assert rows.shape == (2, 40) and rows.dtype == torch.int64
+    got = probe_ref.gather_and_ref(_tw(words), rows.reshape(1, -1))
     want = np.asarray(j_probe_ops.gather_planned_rows(
         jnp.asarray(words), plan, use_ref=True))
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
@@ -111,6 +114,171 @@ def test_gather_planned_rows_rejects_foreign_blocks(rng):
     with pytest.raises(ValueError):
         probe_ops.gather_planned_rows(torch.zeros((64, 2), dtype=torch.int32),
                                       plan)
+
+
+# -- the compact probe plan and the AND over eta ----------------------------
+
+def _probe_stream(rng, p, n, block, kind):
+    if kind == "long_runs":              # sorted: runs split at C
+        return np.sort(rng.integers(0, 3 * block, size=(p, n)), axis=1)
+    if kind == "repeat_across":          # a stream ends in the next's block
+        rows = np.sort(rng.integers(0, 2 * block, size=(p, n)), axis=1)
+        rows[1:, 0] = rows[:-1, -1]
+        return rows
+    return rng.integers(0, 64 * block, size=(p, n))
+
+
+@pytest.mark.parametrize("p,n,block,c,kind", [
+    (3, 97, 16, 8, "long_runs"),         # runs of ~16 split at C = 8
+    (8, 200, 512, 128, "scattered"),
+    (1, 1, 4, 8, "scattered"),           # a one-probe stream
+    (1, 300, 64, 32, "long_runs"),       # P = 1
+    (4, 50, 32, 128, "repeat_across"),   # blocks repeat across streams
+    (6, 40, 1, 32, "scattered"),
+])
+def test_compact_probe_plan_field_by_field(rng, p, n, block, c, kind):
+    rows = _probe_stream(rng, p, n, block, kind)
+    want = j_probe_ops.plan_probe_runs(rows, block_bits=block,
+                                       probes_per_run=c)
+    if kind == "repeat_across":          # two runs in a row, one block
+        assert (want.block_ids[:-1] == want.block_ids[1:]).any()
+    if kind == "long_runs":
+        assert (want.run_lengths == c).any()
+    got = probe_ops.compact_probe_plan(torch.from_numpy(rows), block, c)
+    assert (got.n_runs, got.n_probes, got.eta, got.n_keys) == \
+        (want.n_runs, want.n_probes, want.eta, want.n_keys)
+    assert (got.block_bits, got.probes_per_run) == (block, c)
+    assert (got.min_row, got.max_row) == (rows.min(), rows.max())
+    lengths = got.run_lengths()
+    assert lengths.dtype == want.run_lengths.dtype
+    np.testing.assert_array_equal(lengths, want.run_lengths)   # run order
+    assert got.rows.dtype == torch.int64
+    np.testing.assert_array_equal(got.rows.numpy(), rows)
+    # a (B, eta, n) stream plans as its (B * eta, n) streams
+    if p % 2 == 0:
+        cube = probe_ops.compact_probe_plan(
+            torch.from_numpy(rows.reshape(2, p // 2, n)), block, c)
+        assert (cube.n_runs, cube.eta) == (want.n_runs, want.eta)
+        np.testing.assert_array_equal(cube.run_lengths(), want.run_lengths)
+
+
+def test_compact_probe_plan_empty():
+    for rows in (torch.empty((4, 0), dtype=torch.int64),
+                 torch.empty((0, 3, 5), dtype=torch.int64)):
+        plan = probe_ops.compact_probe_plan(rows, 64)
+        assert (plan.n_runs, plan.n_probes, plan.min_row, plan.max_row) == \
+            (0, 0, None, None)
+        assert plan.run_lengths().shape == (0,)
+    out = probe_kernel.gather_planned_rows(
+        torch.zeros((8, 2), dtype=torch.int32),
+        probe_ops.compact_probe_plan(torch.empty((0, 3, 5),
+                                                 dtype=torch.int64), 4))
+    assert out.shape == (0, 5, 2)
+
+
+def _reference_and(words, rows, *, bit_probe, locs=None):
+    """The reference's probe_rows (interpret mode) over the (B, eta, n_k)
+    rows' run plan, then its own AND over eta (``_finish_probe``)."""
+    b, eta, n_k = rows.shape
+    jplan = j_probe_ops.plan_probe_runs(rows.reshape(b * eta, n_k),
+                                        block_bits=8, probes_per_run=16)
+    gathered = j_probe_ops.gather_planned_rows(jnp.asarray(words), jplan,
+                                               interpret=True)
+    gathered = gathered.reshape(b, eta, n_k, words.shape[1])
+    return np.asarray(j_query._finish_probe(
+        gathered, jnp.asarray(locs if bit_probe else rows),
+        bit_probe=bit_probe))
+
+
+@pytest.mark.parametrize("w", [1, 2, 32])
+@pytest.mark.parametrize("eta", [1, 3, 4])
+def test_gather_and_ref_vs_reference(rng, w, eta):
+    """The row kernel's plain version (what a CPU matrix runs, through the
+    wrapper and a compact plan) against the reference's Pallas gather in
+    interpret mode followed by its AND over eta; rows with bit 31 set."""
+    words = _words(rng, 256, w)
+    words[:, 0] |= np.uint32(1 << 31)
+    rows = rng.integers(0, 256, size=(3, eta, 23))
+    rows[1] = np.sort(rng.integers(0, 24, size=(eta, 23)), axis=1)
+    rows[2, :, 0] = 255                               # the last row
+    want = _reference_and(words, rows, bit_probe=False)
+    assert want.shape == (3, 23, w)
+    got = probe_ref.gather_and_ref(_tw(words), torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    before = probe_kernel.launches
+    plan = probe_ops.compact_probe_plan(torch.from_numpy(rows), 8, 16)
+    got = probe_kernel.gather_planned_rows(_tw(words), plan)
+    assert probe_kernel.launches == before            # CPU: no launch
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert (want[..., 0] >> 31).all()
+
+
+@pytest.mark.parametrize("w", [1, 2, 32])
+@pytest.mark.parametrize("eta", [1, 3, 4])
+def test_probe_bits_and_ref_vs_reference(rng, w, eta):
+    """The bit kernel's plain version against the reference's row gather in
+    interpret mode followed by its bit extraction and AND over eta, and on
+    the flat filter (W = 1) against its probe_runs Pallas kernel (interpret
+    mode) and its jnp probe oracle; locations on bit 31 included."""
+    n_rows = 256
+    words = _words(rng, n_rows, w)
+    words[rng.random(words.shape) < 0.6] = 0xFFFFFFFF    # many hits
+    locs = rng.integers(0, 32 * n_rows, size=(3, eta, 23))
+    locs[:, :, ::4] |= 31                                # bit 31
+    want = _reference_and(words, locs >> 5, bit_probe=True,
+                          locs=locs.astype(np.uint32))
+    assert 0 < want.sum() < want.size
+    got = probe_ref.probe_bits_and_ref(_tw(words), torch.from_numpy(locs))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = probe_kernel.bits_launches
+    plan = probe_ops.compact_probe_plan(torch.from_numpy(locs), 8 * 32, 16)
+    np.testing.assert_array_equal(
+        probe_kernel.probe_planned_bits(_tw(words), plan).numpy(), want)
+    assert probe_kernel.bits_launches == before
+    if w == 1:
+        flat = words.reshape(-1)
+        for b in range(3):
+            jplan = j_probe_ops.plan_probe_runs(locs[b], block_bits=256,
+                                                probes_per_run=16)
+            for kw in (dict(interpret=True), dict(use_ref=True)):
+                member = np.asarray(j_probe_ops.probe_membership(
+                    jnp.asarray(flat), jplan, **kw))
+                np.testing.assert_array_equal(want[b, :, 0] == 1, member)
+        np.testing.assert_array_equal(
+            probe_ref.probe_bits_and_ref(_tw(flat), torch.from_numpy(locs)),
+            want[..., 0])
+        np.testing.assert_array_equal(
+            probe_ref.query_membership_ref(_tw(flat),
+                                           torch.from_numpy(locs[0])),
+            want[0, :, 0] == 1)
+
+
+@pytest.mark.parametrize("bad", [-1, "past"])
+def test_probe_kernels_reject_rows_outside(rng, bad):
+    """A row past the matrix, or a negative one, raises before anything
+    runs, from a compact plan or a bare tensor; so do a wrong rank and a
+    wrong dtype."""
+    matrix = _tw(_words(rng, 64, 2))
+    rows = rng.integers(0, 64, size=(2, 3, 10))
+    rows[1, 2, 7] = -1 if bad == -1 else 64
+    for operand in (torch.from_numpy(rows),
+                    probe_ops.compact_probe_plan(torch.from_numpy(rows), 8)):
+        with pytest.raises(ValueError):
+            probe_kernel.gather_planned_rows(matrix, operand)
+    locs = rows * 32 + (-1 if bad == -1 else 0)
+    for operand in (torch.from_numpy(locs),
+                    probe_ops.compact_probe_plan(torch.from_numpy(locs), 256)):
+        with pytest.raises(ValueError):
+            probe_kernel.probe_planned_bits(matrix[:, 0].contiguous(),
+                                            operand)
+    good = torch.from_numpy(rows.clip(0, 63))
+    with pytest.raises(ValueError):                  # rows of one dim
+        probe_kernel.gather_planned_rows(matrix, good.reshape(-1))
+    with pytest.raises(ValueError):                  # int32 rows
+        probe_kernel.gather_planned_rows(matrix, good.to(torch.int32))
+    with pytest.raises(ValueError):                  # a 1-D matrix
+        probe_kernel.gather_planned_rows(matrix.reshape(-1), good)
 
 
 # -- insert_planned ----------------------------------------------------------
