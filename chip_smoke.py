@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It imports ``repro_torch`` from ``src/`` beside this file (never JAX or the
@@ -31,9 +31,14 @@ reference package) and runs these phases, printing one line each:
    ``insert_with_plan`` at the flat filter's shapes (one 256-read batch's
    compact probe plan into a 2^27-word filter, its counters against the
    reference planner's; a rounds plan with one block in several rounds,
-   its valid lanes flattened on the device). Each main-shape kernel is
-   timed with CUDA events and by CUDA-graph replay (the two probe kernels
-   and the gather's library call also with the L2 flushed before each
+   its valid lanes flattened on the device); 2f the wide rows: the
+   gather's bit mode ``gather_planned_bits`` at one 256-read RAMBO serve
+   batch (a (2^20, 320) matrix), at η 1/3/4, on a misaligned view and an
+   empty batch, ``probe_planned_bits`` at the same shape (what the bit mode
+   replaces there), both bit kernels across row widths, and
+   ``gather_planned_rows`` at a COBS group's W = 16. Each main-shape kernel
+   is timed with CUDA events and by CUDA-graph replay (the probe kernels
+   and the gathers' library call also with the L2 flushed before each
    call) beside its plain version, its byte bound and, where one exists,
    a library call (timed both ways too);
 3. the bit-sliced main path at full width (``full_config``: m = 2^26 rows,
@@ -58,7 +63,23 @@ reference package) and runs these phases, printing one line each:
    launch), ``probe_membership`` on the reference's run plan and on the
    compact plan (both equal to ``query_batch``) and one batch through
    ``GeneSearchService``, plus poisoned reads counted; ``window_min`` once
-   per MinHash.
+   per MinHash;
+5. COBS over an archive of 1024 genomes with lengths log-uniform in
+   [4,096, 262,144] bases (``CobsIndex.build(kmer counts, full_config's
+   IDLConfig, "idl", bits_per_kmer=10, n_groups=2)``: two size groups at W
+   = 16): ingest through ``build_archive(backend="idl_insert")`` in
+   512-read batches, then 8 batches of 256 reads through
+   ``GeneSearchService`` (recall total, the first batch equal to the
+   ``"torch"`` backend, one ``gather_planned_rows`` launch per group and
+   query), 256 random reads, and 256 overlapping reads through ``msmt``
+   with and without dedup (equal); 5b minimizer ingest (``window_min=16``)
+   of 64 files into a fresh COBS index (equal to the plain backend, a
+   subset of a full build, three ``window_min`` launches per insert);
+6. RAMBO over the same archive (``RamboIndex.build(1024, m = 2^25 bits a
+   bucket)``: B 32, R 10, (320, 2^20) int32 words), its last file held out
+   of the build and inserted after a query that must miss it (a query
+   after the insert must find it), then served and checked as in phase 5,
+   one ``gather_planned_bits`` launch per query.
 
 Every path phase zeroes the launch counters just before it and reads them
 just after; each kernel the path runs must have launched. Then it prints
@@ -505,7 +526,8 @@ def _counters():
             (ins_kernel.NAME, ins_kernel, "launches"),
             (wm_kernel.NAME, wm_kernel, "launches"),
             (probe_kernel.BITS_NAME, probe_kernel, "bits_launches"),
-            (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches")]
+            (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches"),
+            (probe_kernel.BIT_MODE_NAME, probe_kernel, "bit_mode_launches")]
 
 
 def reset_launches() -> None:
@@ -628,9 +650,10 @@ def main_path_phase(cfg, archive, dev) -> dict:
     for name in ("gather_planned_rows", "insert_planned", "window_min"):
         check(launches[name] > 0, f"{name} launched on the bit-sliced path")
     check(launches["gather_planned_rows"] == SERVE_BATCHES
-          and launches["probe_planned_bits"] == 0,
+          and launches["probe_planned_bits"] == 0
+          and launches["gather_planned_bits"] == 0,
           "gather_planned_rows launched once per serve batch, "
-          "probe_planned_bits never")
+          "probe_planned_bits and gather_planned_bits never")
     check(correct == total, f"recall {correct}/{total} is total")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
@@ -1038,12 +1061,13 @@ def flat_path_phase(cfg, g, dev) -> dict:
                           .view(per_kmer.shape), per_kmer),
           "probe_membership of the reference's run plan == query_batch")
     for name, count in launches.items():
-        if name != "gather_planned_rows":
+        if name not in ("gather_planned_rows", "gather_planned_bits"):
             check(count > 0, f"{name} launched on the flat-filter path")
     check(launches["probe_planned_bits"] == queries
-          and launches["gather_planned_rows"] == 0,
+          and launches["gather_planned_rows"] == 0
+          and launches["gather_planned_bits"] == 0,
           f"probe_planned_bits launched once per flat query ({queries}), "
-          f"gather_planned_rows never")
+          f"gather_planned_rows and gather_planned_bits never")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
     # direct location calls: the legacy path's and each batch's probe plan
@@ -1084,6 +1108,452 @@ def flat_path_phase(cfg, g, dev) -> dict:
     return launches
 
 
+# -- phases 2f, 5 and 6: COBS and RAMBO at full width ------------------------
+
+ARCHIVE_MIN, ARCHIVE_MAX = 4_096, 262_144   # genome lengths, log-uniform
+RAMBO_M = 1 << 25                           # bits per RAMBO bucket filter
+OVERLAP_STARTS = 16                         # the dedup batch's start points
+
+
+def engine_config(cfg, m: int):
+    """``full_config``'s IDLConfig (k 31, t 16, L 2^17, η 4) at ``m``."""
+    import dataclasses
+
+    return dataclasses.replace(cfg.idl_config(), m=m)
+
+
+def log_uniform_archive(n_files: int, seed: int) -> list:
+    """``(file_id, codes)`` genomes whose lengths are log-uniform in
+    [ARCHIVE_MIN, ARCHIVE_MAX] bases, made from ``seed``."""
+    from repro_torch.data import genome
+
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(np.log(ARCHIVE_MIN), np.log(ARCHIVE_MAX),
+                              size=n_files)).astype(np.int64)
+    return [(fid, genome.synthesize_genome(int(n), seed=seed * 10_000 + fid))
+            for fid, n in enumerate(lens)]
+
+
+def cobs_sizes(archive, k: int) -> list:
+    """Each file's kmer count, what ``CobsIndex.build`` groups by."""
+    return [len(codes) - k + 1 for _, codes in archive]
+
+
+def timed(fn, flush) -> dict:
+    """CUDA events, CUDA-graph replay and graph replay with the L2 cold of
+    one ``fn`` call."""
+    return {"ms": cuda_ms(fn, 20), "graph_ms": graph_ms(fn, 10, 5),
+            "cold_ms": graph_ms_cold(fn, flush)}
+
+
+def wide_kernels_phase(cfg, archive, dev) -> list:
+    """Phase 2f: the gather's bit mode at the RAMBO serve shape (kernel ==
+    plain, tolerance 0; also at η 1/3/4, on a misaligned view and on an
+    empty batch), the ``probe_planned_bits`` it replaces there ("before"),
+    both across row widths (where the route switches), and
+    ``gather_planned_rows`` at a COBS group's W = 16; each timed by events,
+    graph replay and with the L2 cold, beside its byte bound and
+    ``index_select`` of the same rows. Returns the bit mode's JSON
+    record."""
+    from repro_torch.data import genome
+    from repro_torch.index import query
+    from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.idl_probe import ops as probe_ops
+    from repro_torch.kernels.idl_probe import ref as probe_ref
+
+    rng = np.random.default_rng(5)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = functools.partial(scratch.fill_, 0)
+    reads = torch.as_tensor(np.stack([
+        genome.extract_reads(archive[int(f)][1], cfg.read_len, 1,
+                             seed=int(f))[0]
+        for f in rng.integers(0, len(archive), size=SERVE_BATCH)]),
+        device=dev)
+
+    # the bit mode at RAMBO's serve shape: (m/32, R·B) = (2^20, 320)
+    rcfg = engine_config(cfg, RAMBO_M)
+    shape = (RAMBO_M // 32, 320)
+    matrix = rand_matrix(*shape, dev)
+    qplan = query.plan_query(rcfg, "idl", tuple(reads.shape), shape,
+                             bit_probe=True, device=dev)
+    locs = qplan.locations(reads)                      # (B, η, n_k) int64
+    plan = probe_ops.compact_probe_plan(locs, 32 * qplan.rows_per_block,
+                                        qplan.probes_per_run)
+
+    def bits_kernel():
+        return probe_kernel.gather_planned_bits(matrix, plan)
+
+    def bits_plain():
+        return probe_ref.gather_bits_and_ref(matrix, locs)
+
+    def bits_before():
+        return probe_kernel.probe_planned_bits(matrix, plan)
+
+    rows_flat = (locs >> 5).reshape(-1)
+
+    def bits_library():
+        return torch.index_select(matrix, 0, rows_flat)
+
+    got, want, before = bits_kernel(), bits_plain(), bits_before()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0 and torch.equal(before, want),
+          "gather_planned_bits == plain == probe_planned_bits at the RAMBO "
+          "serve shape")
+    del got, want, before
+    b, eta, n_k = locs.shape
+    rows_read = torch.unique(rows_flat).cpu().numpy()
+    w = shape[1]
+    b_bytes = (8 * locs.numel() + sector_bytes(rows_read * w, w)
+               + 4 * b * n_k * w)
+    t_kernel, t_before = timed(bits_kernel, flush), timed(bits_before, flush)
+    t_library = timed(bits_library, flush)
+    record = {
+        "name": probe_kernel.BIT_MODE_NAME, "route": "cuda",
+        "source": probe_kernel.SOURCE, "replaces": probe_kernel.REPLACES,
+        "max_abs_err": err, "ms": t_kernel["ms"],
+        "plain_ms": cuda_ms(bits_plain, 5),
+        "bound_ms": 1e3 * b_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": t_library["ms"],
+    }
+    GRAPH_MS[probe_kernel.BIT_MODE_NAME] = t_kernel["graph_ms"]
+    GRAPH_MS[probe_kernel.BIT_MODE_NAME + " (L2 cold)"] = t_kernel["cold_ms"]
+
+    # η 1/3/4, a misaligned view (4-byte words), an empty batch
+    small = rand_matrix(4096, w, dev)
+    for e in (1, 3, 4):
+        sl = torch.as_tensor(rng.integers(0, 32 * 4096, size=(3, e, 97)),
+                             device=dev)
+        sl[2, :, 0] = 32 * 4096 - 1                   # the last bit
+        check(torch.equal(probe_kernel.gather_planned_bits(small, sl),
+                          probe_ref.gather_bits_and_ref(small, sl)),
+              f"gather_planned_bits η={e} == plain")
+    view = rand_matrix(4096 * w + 1, 1, dev).reshape(-1)[1:].view(4096, w)
+    check(view.data_ptr() % 16 == 4, "a misaligned view")
+    check(torch.equal(probe_kernel.gather_planned_bits(view, sl),
+                      probe_ref.gather_bits_and_ref(view, sl)),
+          "gather_planned_bits on a misaligned view == plain")
+    empty = probe_kernel.gather_planned_bits(
+        small, torch.empty((0, 4, 97), dtype=torch.int64, device=dev))
+    check(empty.shape == (0, 97, w), "an empty batch")
+    del small, view
+
+    # where the route switches: both bit kernels on (2^20, W) matrices
+    widths = {}
+    for wd in (1, 2, 4, 8, 16, 32, 64):
+        mat = rand_matrix(shape[0], wd, dev)
+        a = probe_kernel.gather_planned_bits(mat, plan)
+        check(torch.equal(a, probe_kernel.probe_planned_bits(mat, plan)),
+              f"both bit kernels agree at W={wd}")
+        widths[wd] = {
+            "gather_planned_bits": graph_ms(
+                lambda: probe_kernel.gather_planned_bits(mat, plan)),
+            "probe_planned_bits": graph_ms(
+                lambda: probe_kernel.probe_planned_bits(mat, plan))}
+    del mat, matrix
+    torch.cuda.empty_cache()
+
+    # gather_planned_rows at a COBS group's shape: the larger group of the
+    # archive's two, W = 16
+    from repro_torch.index import CobsIndex
+
+    groups = CobsIndex.build(cobs_sizes(archive, cfg.k), cfg.idl_config(),
+                             "idl", 10.0, 2, device="meta").groups
+    gcfg = max(groups, key=lambda g: g.cfg.m).cfg
+    cshape = (gcfg.m, 16)
+    cmat = rand_matrix(*cshape, dev)
+    cplan_q = query.plan_query(gcfg, "idl", tuple(reads.shape), cshape,
+                               bit_probe=False, device=dev)
+    crows = cplan_q.locations(reads)
+    cplan = probe_ops.compact_probe_plan(crows, cplan_q.rows_per_block,
+                                         cplan_q.probes_per_run)
+    got = probe_kernel.gather_planned_rows(cmat, cplan)
+    check(max_abs_err(got, probe_ref.gather_and_ref(cmat, crows)) == 0,
+          "gather_planned_rows == plain at a COBS group's shape")
+    crows_flat = crows.reshape(-1)
+    c_read = torch.unique(crows_flat).cpu().numpy()
+    c_bytes = (8 * crows.numel() + sector_bytes(c_read * 16, 16)
+               + 4 * b * n_k * 16)
+    t_cobs = timed(lambda: probe_kernel.gather_planned_rows(cmat, cplan),
+                   flush)
+    t_cobs_lib = timed(lambda: torch.index_select(cmat, 0, crows_flat),
+                       flush)
+    GRAPH_MS["gather_planned_rows (COBS W=16)"] = t_cobs["graph_ms"]
+    del cmat, scratch, flush
+    torch.cuda.empty_cache()
+    print(f"phase 2f wide rows: ok (kernel == plain, tolerance 0: bit-exact)"
+          f" — bit mode at the RAMBO serve shape ({shape[0]} x {w} int32, "
+          f"{plan.n_probes} probes, {b * n_k} keys of η {eta}, "
+          f"{rows_read.size} distinct rows of {4 * w} B; max_abs_err {err}): "
+          f"kernel {json.dumps(t_kernel)}, bound {record['bound_ms']:.6f} ms "
+          f"({b_bytes} B = 8 B x {locs.numel()} locations + distinct rows + "
+          f"answers), plain {record['plain_ms']:.6f} ms; before, "
+          f"probe_planned_bits at this shape {json.dumps(t_before)}; "
+          f"yardstick index_select of the {rows_flat.numel()} rows alone (no "
+          f"shift or AND) {json.dumps(t_library)}; η 1/3/4, misaligned view "
+          f"and empty batch == plain; graph ms by row width W (same "
+          f"locations, (2^20, W) matrices): {json.dumps(widths)}; "
+          f"gather_planned_rows at a COBS group ({cshape[0]} x 16, "
+          f"{c_read.size} distinct rows): {json.dumps(t_cobs)}, bound "
+          f"{1e3 * c_bytes / HBM_BYTES_PER_S:.6f} ms ({c_bytes} B), "
+          f"index_select {json.dumps(t_cobs_lib)}")
+    return [record]
+
+
+def serve_checks(eng, archive, cfg, per_query: int) -> dict:
+    """Serve ``SERVE_BATCHES`` batches of 256 genuine reads through
+    ``GeneSearchService(backend="idl_probe")`` at θ = 1 (recall total, the
+    first batch == the ``"torch"`` backend, whose run is not counted), 256
+    random reads (their extra matches), and one batch of overlapping reads
+    from ``OVERLAP_STARTS`` start points of one file through ``msmt`` with
+    and without dedup (equal). Returns the counts the caller checks."""
+    from repro_torch.data import genome
+    from repro_torch.index import query
+    from repro_torch.kernels.idl_probe import ops as probe_ops
+    from repro_torch.serving import GeneSearchService, ServiceConfig
+
+    svc = GeneSearchService(eng, ServiceConfig(
+        theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe"))
+    plain_svc = GeneSearchService(eng, ServiceConfig(
+        theta=1.0, max_batch=SERVE_BATCH, backend="torch"))
+    qrng = np.random.default_rng(0)
+    correct = total = extra = queries = 0
+    batch_ms = []
+    with counting_calls(probe_ops, "plan_probe_runs") as qplanner:
+        for r in range(SERVE_BATCHES):
+            fids = qrng.integers(0, len(archive), size=SERVE_BATCH)
+            reads = [genome.extract_reads(archive[int(f)][1], cfg.read_len,
+                                          1, seed=1000 * r + i)[0]
+                     for i, f in enumerate(fids)]
+            t0 = time.perf_counter()
+            results = svc.search(reads)
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+            queries += 1
+            for fid, res in zip(fids, results):
+                check(res.matches.shape == (len(archive),), "verdict shape")
+                hit = int(fid) in res.file_ids
+                correct += hit
+                extra += len(res.file_ids) - hit
+                total += 1
+            if r == 0:
+                counts = read_launches()
+                plain = plain_svc.search(reads)
+                for name, mod, attr in _counters():
+                    setattr(mod, attr, counts[name])
+                check(all(np.array_equal(a.matches, b.matches)
+                          for a, b in zip(results, plain)),
+                      "idl_probe verdicts == torch verdicts on the first "
+                      "batch")
+        random_reads = list(qrng.integers(0, 4, size=(SERVE_BATCH,
+                                                      cfg.read_len),
+                                          dtype=np.uint8))
+        random_extra = sum(len(res.file_ids)
+                           for res in svc.search(random_reads))
+        queries += 1
+        codes = archive[int(qrng.integers(0, len(archive)))][1]
+        starts = qrng.integers(0, len(codes) - cfg.read_len,
+                               size=OVERLAP_STARTS)
+        overlap = np.stack([codes[s:s + cfg.read_len] for s in
+                            qrng.choice(starts, size=SERVE_BATCH)])
+        naive = eng.msmt(overlap, backend="idl_probe")
+        dedup = eng.msmt(overlap, backend="idl_probe", dedup=True)
+        queries += 2
+        check(torch.equal(naive, dedup) and bool(naive.any(dim=1).all()),
+              "msmt with dedup == without, every overlapping read matched")
+    check(qplanner[0] == 0, "no numpy probe planner while serving")
+    check(correct == total, f"recall {correct}/{total} is total")
+    uniq, _, (b, n_k) = query.factor_unique_kmers(overlap, cfg.k)
+    return {"correct": correct, "total": total, "extra": extra,
+            "random_extra": random_extra, "batch_ms": batch_ms,
+            "probe_launches": per_query * queries,
+            "dedup_kmers": (len(uniq), b * n_k),
+            # dedup's locality sort hashes the distinct kmers once more
+            "extra_minhashes": per_query}
+
+
+def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
+                      per_query: int, held_out: bool) -> dict:
+    """Phases 5 and 6: ingest the archive through ``build_archive(backend=
+    "idl_insert")`` in 512-read batches (no numpy run planner), then
+    :func:`serve_checks`; with ``held_out`` the archive's last file is left
+    out of the build, a query of its reads must miss it, and after its
+    insert a query must find it. Launch counters are zeroed just before and
+    read just after; ``probe`` must launch ``per_query`` times per query
+    and the other probe kernels never. Returns the launch counts."""
+    from repro_torch.data import genome
+    from repro_torch.index import build_archive
+    from repro_torch.kernels.idl_insert import ops as ins_ops
+    from repro_torch.obs import metrics as obs_metrics
+
+    obs_metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    build_files = archive[:-1] if held_out else archive
+    t0 = time.perf_counter()
+    with counting_calls(ins_ops, "plan_insert_runs") as planner:
+        eng = build_archive(eng, build_files, read_len=cfg.read_len,
+                            chunk_reads=INSERT_BATCH, backend="idl_insert")
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        held_queries, held_line = 0, ""
+        if held_out:
+            fid, codes = archive[-1]
+            reads = genome.extract_reads(codes, cfg.read_len, 8, seed=3)
+            before = eng.msmt(reads)
+            eng = build_archive(eng, archive[-1:], read_len=cfg.read_len,
+                                chunk_reads=INSERT_BATCH,
+                                backend="idl_insert")
+            after = eng.msmt(reads)
+            held_queries = 2
+            check(not bool(before[:, fid].any()) and bool(after[:, fid].all()),
+                  f"file {fid}: missed before its insert, found after")
+            held_line = (f"file {fid} held out of the build: its 8 reads "
+                         f"matched it 0/8 before its insert, 8/8 after; ")
+    check(planner[0] == 0, "no numpy run planner on the CUDA ingest path")
+    check(read_launches()["insert_planned"] > 0, "insert_planned launched")
+    torch.cuda.synchronize()
+    ingest_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_checks(eng, archive, cfg, per_query)
+    torch.cuda.synchronize()
+    serve_peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    want = served["probe_launches"] + per_query * held_queries
+    others = [n for n in ("gather_planned_rows", "gather_planned_bits",
+                          "probe_planned_bits") if n != probe]
+    check(launches[probe] == want and all(launches[n] == 0 for n in others),
+          f"{probe} launched {launches[probe]} times, {per_query} per query "
+          f"({want}); {', '.join(others)} never")
+    for name in (probe, "insert_planned", "window_min"):
+        check(launches[name] > 0, f"{name} launched on the {label} path")
+    snap = obs_metrics.DEFAULT.snapshot()
+    stages = stage_means(snap, ingest_s, served["batch_ms"])
+    minhashes = check_window_min_launches(launches, stages,
+                                          served["extra_minhashes"],
+                                          f"{label} path")
+    tile_q = obs_metrics.counter_total(
+        snap, "locality.planned_tile_bytes", {"op": "query"})
+    runs = {op: (obs_metrics.counter_total(snap, "locality.probe_runs",
+                                           {"op": op}),
+                 obs_metrics.counter_total(snap, "locality.probes",
+                                           {"op": op}))
+            for op in ("insert", "query")}
+    distinct, kmers = served["dedup_kmers"]
+    print(f"phase {label}: ok — {eng.state.nbytes} B of words "
+          f"{[tuple(w.shape) for w in eng.state.words]} over "
+          f"{len(archive)} files ({sum(len(c) for _, c in archive)} bases); "
+          f"ingest {ingest_s:.3f} s in batches of {INSERT_BATCH} reads "
+          f"({stages['insert.launch']['batches']} planned inserts; numpy "
+          f"run planner calls 0); {held_line}window_min once per MinHash "
+          f"({minhashes}); serve {SERVE_BATCHES} x {SERVE_BATCH} reads, "
+          f"batch ms {[round(x, 3) for x in served['batch_ms']]} (numpy "
+          f"probe planner calls 0); recall {served['correct']}/"
+          f"{served['total']}; mean extra matched files "
+          f"{served['extra'] / served['total']:.4f}; {SERVE_BATCH} random "
+          f"reads matched {served['random_extra']} files in all; first batch "
+          f"== torch backend; dedup batch ({OVERLAP_STARTS} start points, "
+          f"{distinct} distinct of {kmers} kmers) == no dedup; planner "
+          f"runs/probes insert {runs['insert'][0]:.0f}/{runs['insert'][1]:.0f}"
+          f" query {runs['query'][0]:.0f}/{runs['query'][1]:.0f}, "
+          f"locality.planned_tile_bytes query {tile_q:.0f}; launches "
+          f"{json.dumps(launches)}; max_memory_allocated ingest "
+          f"{ingest_peak} B, serve {serve_peak} B")
+    print(f"phase {label} where the time goes (host ms per batch, means over "
+          f"the path's run; the query stages also time the random and dedup "
+          f"queries, and any held-out file's): "
+          + json.dumps(stages, sort_keys=True))
+    return launches
+
+
+def cobs_path_phase(cfg, archive, dev) -> dict:
+    """Phase 5: COBS over the archive (``CobsIndex.build(kmer counts,
+    full_config's IDLConfig, "idl", bits_per_kmer=10, n_groups=2)``), one
+    ``gather_planned_rows`` launch per size group and query."""
+    from repro_torch.index import CobsIndex
+
+    eng = CobsIndex.build(cobs_sizes(archive, cfg.k), cfg.idl_config(),
+                          "idl", 10.0, 2, device=dev)
+    return engine_path_phase("5 COBS", eng, archive, cfg,
+                             probe="gather_planned_rows",
+                             per_query=len(eng.groups), held_out=False)
+
+
+def minimizer_phase(cfg, archive, dev) -> dict:
+    """Phase 5b: minimizer ingest (``window_min=16``) of the archive's first
+    64 files into a fresh COBS index: its words equal the plain
+    ``"torch"`` backend's (not counted) and are a subset of a full build's,
+    with fewer bits; ``window_min`` launches three times per planned insert
+    (the MinHash and the mask's two sliding minima). Returns the launch
+    counts."""
+    from repro_torch.index import CobsIndex, build_archive
+    from repro_torch.index.engines import popcount32
+    from repro_torch.obs import metrics as obs_metrics
+
+    files = archive[:64]
+    sizes = cobs_sizes(archive, cfg.k)
+
+    def fresh():
+        return CobsIndex.build(sizes, cfg.idl_config(), "idl", 10.0, 2,
+                               device=dev)
+
+    def build(backend, window_min):
+        return build_archive(fresh(), files, read_len=cfg.read_len,
+                             chunk_reads=INSERT_BATCH, backend=backend,
+                             window_min=window_min)
+
+    obs_metrics.reset()
+    reset_launches()
+    mini = build("idl_insert", 16)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_inserts = sum(
+        h["count"] for key, h in obs_metrics.DEFAULT.snapshot()["hists"][
+            "planner.stage_ms"].items()
+        if obs_metrics.parse_label_key(key) == {
+            "tier": "planner", "op": "insert", "stage": "launch"})
+    plain = build("torch", 16)
+    full = build("idl_insert", None)
+    for name, mod, attr in _counters():     # the comparisons are not counted
+        setattr(mod, attr, launches[name])
+    set_bits = [sum(int(popcount32(w).sum()) for w in e.state.words)
+                for e in (mini, full)]
+    check(all(torch.equal(a, b) for a, b in zip(mini.state.words,
+                                                plain.state.words)),
+          "minimizer build: idl_insert words == torch backend words")
+    check(all(bool(((a & ~b) == 0).all()) for a, b in
+              zip(mini.state.words, full.state.words))
+          and 0 < set_bits[0] < set_bits[1],
+          "minimizer build is a strict subset of the full build")
+    check(launches["window_min"] == 3 * n_inserts
+          and launches["insert_planned"] == n_inserts,
+          f"window_min launched three times per minimizer insert "
+          f"({launches['window_min']} for {n_inserts})")
+    print(f"phase 5b minimizer ingest: ok — {len(files)} files into a fresh "
+          f"COBS index with window_min=16 ({n_inserts} planned inserts, "
+          f"window_min {launches['window_min']} launches, three per insert); "
+          f"words == the torch backend's; set bits {set_bits[0]} of a full "
+          f"build's {set_bits[1]} ({set_bits[0] / set_bits[1]:.4f}), a "
+          f"subset")
+    return launches
+
+
+def rambo_path_phase(cfg, archive, dev) -> dict:
+    """Phase 6: RAMBO over the archive (``RamboIndex.build(1024, cfg at m =
+    2^25 bits a bucket, "idl")``: B 32, R 10, (320, 2^20) int32 words),
+    ``"rows"`` inserts of 10 targets per kmer and repetition, one bit-mode
+    launch per query; the archive's last file goes in after the build and a
+    query after its insert must see it."""
+    from repro_torch.index import RamboIndex
+
+    eng = RamboIndex.build(len(archive), engine_config(cfg, RAMBO_M), "idl",
+                           device=dev)
+    check((eng.n_buckets, eng.n_rep) == (32, 10), "RAMBO shape B 32, R 10")
+    return engine_path_phase("6 RAMBO", eng, archive, cfg,
+                             probe="gather_planned_bits", per_query=1,
+                             held_out=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
@@ -1107,10 +1577,17 @@ def main() -> None:
     fcfg = flat_config()
     g = genome.synthesize_genome(FLAT_GENOME_LEN, seed=0)
     kernels += flat_kernels_phase(fcfg, g, dev)
+    engine_archive = log_uniform_archive(cfg.n_files, ARCHIVE_SEED)
+    kernels += wide_kernels_phase(cfg, engine_archive, dev)
     torch.cuda.empty_cache()
     paths = [main_path_phase(cfg, archive, dev)]
     torch.cuda.empty_cache()        # phase 3's 8 GiB index is freed
     paths.append(flat_path_phase(fcfg, g, dev))
+    torch.cuda.empty_cache()
+    paths.append(cobs_path_phase(cfg, engine_archive, dev))
+    paths.append(minimizer_phase(cfg, engine_archive, dev))
+    torch.cuda.empty_cache()
+    paths.append(rambo_path_phase(cfg, engine_archive, dev))
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

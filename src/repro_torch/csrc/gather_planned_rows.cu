@@ -53,6 +53,13 @@ struct Units<int4> {
   static __device__ __forceinline__ int4 ones() {
     return make_int4(-1, -1, -1, -1);
   }
+  // bit s of each word, as 0 or 1
+  static __device__ __forceinline__ int4 bit(int4 v, unsigned s) {
+    return make_int4((static_cast<unsigned>(v.x) >> s) & 1u,
+                     (static_cast<unsigned>(v.y) >> s) & 1u,
+                     (static_cast<unsigned>(v.z) >> s) & 1u,
+                     (static_cast<unsigned>(v.w) >> s) & 1u);
+  }
   static __device__ __forceinline__ int4 band(int4 a, int4 b) {
     return make_int4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
   }
@@ -67,6 +74,9 @@ struct Units<int4> {
 template <>
 struct Units<int32_t> {
   static __device__ __forceinline__ int32_t ones() { return -1; }
+  static __device__ __forceinline__ int32_t bit(int32_t v, unsigned s) {
+    return (static_cast<unsigned>(v) >> s) & 1u;
+  }
   static __device__ __forceinline__ int32_t band(int32_t a, int32_t b) {
     return a & b;
   }
@@ -75,14 +85,27 @@ struct Units<int32_t> {
   }
 };
 
-// Element (b, e, k) of the (B, eta, n_k) row tensor for key = b * n_k + k.
+// Element (b, e, k) of the (B, eta, n_k) row (or location) tensor for key =
+// b * n_k + k.
 __device__ __forceinline__ long long row_of(const long long* rows,
                                             long long key, int e, int eta,
                                             int n_k) {
   return __ldg(rows + ((key / n_k) * eta + e) * n_k + key % n_k);
 }
 
-template <typename Unit>
+// The unit of the probed row that a lane ANDs in: the row's own unit, or in
+// bit mode bit (loc & 31) of each of its words.
+template <typename Unit, bool kBits>
+__device__ __forceinline__ Unit probe_unit(const Unit* __restrict__ matrix,
+                                           long long loc, int units,
+                                           int unit) {
+  if constexpr (kBits)
+    return Units<Unit>::bit(__ldg(matrix + (loc >> 5) * units + unit),
+                            static_cast<unsigned>(loc & 31));
+  return __ldg(matrix + loc * units + unit);
+}
+
+template <typename Unit, bool kBits>
 __global__ void __launch_bounds__(kThreads)
 gather_and_kernel(const Unit* __restrict__ matrix,
                   const long long* __restrict__ rows, Unit* __restrict__ out,
@@ -111,7 +134,8 @@ gather_and_kernel(const Unit* __restrict__ matrix,
 #pragma unroll
         for (int i = 0; i < kUnroll; ++i)
           if (row[i] >= 0)
-            acc[i] = U::band(acc[i], __ldg(matrix + row[i] * units + unit));
+            acc[i] = U::band(acc[i], probe_unit<Unit, kBits>(
+                                         matrix, row[i], units, unit));
       }
       for (int mask = units; mask < 32; mask <<= 1) {
 #pragma unroll
@@ -131,8 +155,9 @@ gather_and_kernel(const Unit* __restrict__ matrix,
       for (int unit = lane; unit < units; unit += 32) {
         Unit acc = U::ones();
         for (int e = 0; e < eta; ++e)
-          acc = U::band(acc, __ldg(matrix + row_of(rows, key, e, eta, n_k) *
-                                                units + unit));
+          acc = U::band(acc, probe_unit<Unit, kBits>(
+                                 matrix, row_of(rows, key, e, eta, n_k), units,
+                                 unit));
         __stcs(out + key * units + unit, acc);
       }
     }
@@ -141,7 +166,7 @@ gather_and_kernel(const Unit* __restrict__ matrix,
 
 // Blocks that fill the card once (every SM at its occupancy), for the
 // grid-stride loop; computed once per instantiation.
-template <typename Unit>
+template <typename Unit, bool kBits>
 int resident_blocks() {
   static int blocks = 0;
   if (blocks == 0) {
@@ -149,23 +174,39 @@ int resident_blocks() {
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gather_and_kernel<Unit>, kThreads, 0);
+        &per_sm, gather_and_kernel<Unit, kBits>, kThreads, 0);
     blocks = sms * (per_sm > 0 ? per_sm : 1);
   }
   return blocks;
 }
 
-template <typename Unit>
+template <typename Unit, bool kBits>
 void launch(const void* matrix, const void* rows, void* out,
             long long n_keys, int n_k, int eta, int units,
             cudaStream_t stream) {
   const long long wanted =
       (n_keys + kWarpsPerBlock * kUnroll - 1) / (kWarpsPerBlock * kUnroll);
-  const long long cap = resident_blocks<Unit>();
+  const long long cap = resident_blocks<Unit, kBits>();
   const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
-  gather_and_kernel<Unit><<<blocks, kThreads, 0, stream>>>(
+  gather_and_kernel<Unit, kBits><<<blocks, kThreads, 0, stream>>>(
       static_cast<const Unit*>(matrix), static_cast<const long long*>(rows),
       static_cast<Unit*>(out), n_keys, n_k, eta, units);
+}
+
+template <bool kBits>
+int launch_any(const void* matrix, const void* rows, void* out,
+               long long n_keys, int n_k, int eta, int row_words, int vector,
+               void* stream) {
+  if (n_keys > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (vector)
+      launch<int4, kBits>(matrix, rows, out, n_keys, n_k, eta, row_words / 4,
+                          s);
+    else
+      launch<int32_t, kBits>(matrix, rows, out, n_keys, n_k, eta, row_words,
+                             s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -178,12 +219,17 @@ extern "C" int gather_planned_rows(const void* matrix, const void* rows,
                                    void* out, long long n_keys, int n_k,
                                    int eta, int row_words, int vector,
                                    void* stream) {
-  if (n_keys > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (vector)
-      launch<int4>(matrix, rows, out, n_keys, n_k, eta, row_words / 4, s);
-    else
-      launch<int32_t>(matrix, rows, out, n_keys, n_k, eta, row_words, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_any<false>(matrix, rows, out, n_keys, n_k, eta, row_words,
+                           vector, stream);
+}
+
+// The bit mode: out[b, k, w] = AND over e of bit (locs[b, e, k] & 31) of
+// matrix[locs[b, e, k] >> 5, w], as 0 or 1, for the n_keys = B * n_k keys;
+// arguments as gather_planned_rows's.
+extern "C" int gather_planned_bits(const void* matrix, const void* locs,
+                                   void* out, long long n_keys, int n_k,
+                                   int eta, int row_words, int vector,
+                                   void* stream) {
+  return launch_any<true>(matrix, locs, out, n_keys, n_k, eta, row_words,
+                          vector, stream);
 }

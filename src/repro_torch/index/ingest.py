@@ -14,6 +14,8 @@ described by ``(row, word_col, bit)`` targets. Backends:
 
 Both update the matrix **in place** (the reference donates instead);
 ``donate=False`` scatters into a clone and leaves the input untouched.
+``window_min`` (minimizer sub-sampling, :func:`minimizer_mask`) inserts
+only each read's window-minimizer kmers, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,12 +28,38 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import idl as idl_mod
+from repro_torch.core import hashing, idl as idl_mod, minhash
 from repro_torch.index import packed, query
 from repro_torch.kernels.idl_insert import ops as ins_ops
 
 BACKENDS = ("torch", "idl_insert")
 KINDS = ("bits", "rows", "cols")
+
+
+# ---------------------------------------------------------------------------
+# Minimizer sub-sampling.
+# ---------------------------------------------------------------------------
+
+def minimizer_mask(locs: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, n_kmers) bool: the kmer is a window-``w`` minimizer of its read.
+
+    The rank is a re-mix of the kmer's repetition-0 location; a kmer is kept
+    iff it attains the minimum rank of at least one length-``w`` window
+    holding it: two sliding minima (``window_min`` launches on a CUDA
+    tensor), the second over the inverted window minima, padded with
+    ``0xFFFFFFFF`` (a sliding maximum of the minima). Reads shorter than
+    ``w`` keep every kmer. Ranks are uint32 carried in int64, so the
+    inversion is ``0xFFFFFFFF ^ x``, never ``~x``.
+    """
+    rank = hashing.mix32(locs[:, 0, :] ^ 0x9E3779B9)
+    n_k = rank.shape[1]
+    if w <= 1 or n_k < w:
+        return torch.ones(rank.shape, dtype=torch.bool, device=rank.device)
+    inv = hashing.M32 ^ minhash.sliding_window_min(rank, w)
+    pad = inv.new_full((inv.shape[0], w - 1), hashing.M32)
+    best = hashing.M32 ^ minhash.sliding_window_min(
+        torch.cat([pad, inv, pad], dim=1), w)
+    return best == rank
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +82,7 @@ class InsertPlan:
     lane32: bool
     rows_per_block: int               # run-coalescing tile height
     inserts_per_run: int
+    window_min: Optional[int] = None  # minimizer sub-sampling window
 
     @property
     def row_words(self) -> int:
@@ -74,9 +103,14 @@ class InsertPlan:
         """Flat int64 (row, word_col, bit) target streams.
 
         ``aux``: None (``"bits"``), (B, R) filter rows (``"rows"``), or
-        (B,) file columns (``"cols"``).
+        (B,) file columns (``"cols"``). Targets masked off by minimizer
+        sub-sampling are routed to the row past the matrix, which every
+        backend drops.
         """
         locs = self.locations(reads)                    # (B, η, n_k)
+        keep = None
+        if self.window_min is not None:
+            keep = minimizer_mask(locs, self.window_min)[:, None]
         if self.kind == "bits":
             row, wc, bit = locs >> 5, torch.zeros_like(locs), locs & 31
         elif self.kind == "cols":
@@ -94,8 +128,12 @@ class InsertPlan:
             row = frows[:, :, None, None].expand(shape)
             wc = (locs >> 5)[:, None].expand(shape)
             bit = (locs & 31)[:, None].expand(shape)
+            if keep is not None:
+                keep = keep[:, None]
         else:
             raise ValueError(f"unknown insert kind {self.kind!r}")
+        if keep is not None:
+            row = torch.where(keep, row, self.matrix_shape[0])
         return row.reshape(-1), wc.reshape(-1), bit.reshape(-1)
 
     def flat_positions(self, reads: torch.Tensor,
@@ -187,6 +225,7 @@ def plan_insert(
     lane32: bool = False,
     rows_per_block: Optional[int] = None,
     inserts_per_run: Optional[int] = None,
+    window_min: Optional[int] = None,
     device="cuda",
 ) -> InsertPlan:
     """Build (or fetch) the cached plan for one insert geometry.
@@ -195,6 +234,7 @@ def plan_insert(
     ``"bits"`` and otherwise ``L`` rows clamped to ``2**21 / (W·128)``, as a
     power of two that divides ``n_rows``; ``inserts_per_run`` is 128 on an
     accelerator and 32 on a CPU, read from the type of ``device``.
+    ``window_min`` turns on minimizer sub-sampling.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown insert kind {kind!r} (want one of {KINDS})")
@@ -215,7 +255,17 @@ def plan_insert(
         read_shape=tuple(read_shape), matrix_shape=tuple(matrix_shape),
         kind=kind, lane32=lane32,
         rows_per_block=rows_per_block, inserts_per_run=inserts_per_run,
+        window_min=window_min,
     )
+
+
+def plan_cache_info() -> query.PlanCacheInfo:
+    """Stats of the (bounded) insert-plan cache, with its eviction count."""
+    return query._with_evictions(plan_insert.cache_info())
+
+
+def clear_plan_cache() -> None:
+    plan_insert.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +294,7 @@ def build_archive(
     read_len: int = 230,
     chunk_reads: int = 64,
     backend: str = "idl_insert",
+    window_min: Optional[int] = None,
     pad_final: bool = True,
     **kw,
 ):
@@ -255,10 +306,12 @@ def build_archive(
     covered; duplicates are free since scatter-OR is idempotent), batched
     ``chunk_reads`` at a time into the engine's ``insert_batch``. With
     ``pad_final`` a partial tail chunk repeats a read to fill the batch.
+    ``window_min`` inserts only window-``w`` minimizer kmers (fewer bits
+    than a full build).
     """
     from repro_torch.data import genome as genome_mod
 
-    k = int(index.cfg.k)
+    k = int(getattr(index, "k", None) or index.cfg.k)
     pending: dict[int, tuple[list, list]] = {}
 
     def flush(length: int, force: bool):
@@ -273,7 +326,7 @@ def build_archive(
                 fids = fids + [fids[0]] * (chunk_reads - take)
             index = index.insert_batch(
                 np.stack(batch), np.asarray(fids, dtype=np.int32),
-                backend=backend, **kw)
+                backend=backend, window_min=window_min, **kw)
 
     for pos, item in enumerate(files):
         fid, seqs = _file_sequences(item, pos)

@@ -1,22 +1,40 @@
 """The shared query-execution layer: one planned probe path.
 
 Port of :mod:`repro.index.query` (row and bit probes, the plain and the
-planned backend, and the coverage reductions). Every query is a row gather
-over a packed ``(n_rows, W)`` int32 bit-matrix followed by an AND over the
-η hash repetitions. A :class:`QueryPlan` holds everything static and is
-built once per geometry through an LRU cache (:func:`plan_query`).
-Executing a plan picks one of two backends:
+planned backend, the probe dedup path, and the coverage reductions). Every
+query is a row gather over a packed ``(n_rows, W)`` int32 bit-matrix
+followed by an AND over the η hash repetitions:
+
+======================  ==========================  =====================
+Engine                  Probed matrix               Probe kind
+======================  ==========================  =====================
+``PackedBloomIndex``    ``(m/32, 1)`` word column   bit  (row = loc>>5)
+``RamboIndex``          ``(m/32, R·B)`` transpose   bit  (row = loc>>5)
+``CobsIndex`` group     ``(m_g, ⌈F_g/32⌉)``         row  (row = loc)
+``BitSlicedIndex``      ``(m, ⌈F/32⌉)``             row  (row = loc)
+======================  ==========================  =====================
+
+A :class:`QueryPlan` holds everything static and is built once per
+geometry through an LRU cache (:func:`plan_query`). Executing a plan picks
+one of two backends:
 
 * ``"torch"``     — the plain gather (the port of the reference's ``"jnp"``);
 * ``"idl_probe"`` — the compact plan built on the matrix's device (the
   batch's probe stream and the reference planner's counters) + one CUDA
   kernel launch that gathers and ANDs over η: ``gather_planned_rows`` for
-  row probes, ``probe_planned_bits`` for bit probes (on a CPU matrix, the
-  kernel's plain version). The reference's numpy run planner stays as
-  :meth:`QueryPlan.plan_runs`, off this path.
+  row probes, ``probe_planned_bits`` for bit probes of rows of at most
+  :data:`PROBE_BITS_MAX_WORDS` words (the flat filter) and the gather's
+  bit mode ``gather_planned_bits`` for bit probes of wider rows (RAMBO);
+  on a CPU matrix, the kernel's plain version. The reference's numpy run
+  planner stays as :meth:`QueryPlan.plan_runs`, off this path.
+
+``execute(..., dedup=True)`` probes each distinct kmer of the batch once,
+in the reference's order (see :meth:`QueryPlan._execute_dedup`), and
+gathers the answers back: the same answers, and the same ``locality.*``
+counters as the reference's dedup path.
 
 Both backends are bit-identical to each other and to the reference
-(``tests/test_torch_index.py``).
+(``tests/test_torch_index.py``, ``tests/test_torch_engines.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -117,6 +135,53 @@ def as_reads(reads, device) -> torch.Tensor:
     return reads[None] if reads.dim() == 1 else reads
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def read_kmers(reads: np.ndarray, k: int) -> np.ndarray:
+    """(B, read_len) uint8 reads -> (B·n_kmers, k) stride-1 kmer rows (the
+    host key of every dedup and cache path)."""
+    arr = np.asarray(reads, dtype=np.uint8)
+    if arr.ndim == 1:
+        arr = arr[None]
+    kms = np.lib.stride_tricks.sliding_window_view(arr, k, axis=1)
+    return np.ascontiguousarray(kms.reshape(-1, k))
+
+
+def factor_unique_kmers(
+    reads, k: int
+) -> tuple[np.ndarray, np.ndarray, tuple[int, int]]:
+    """Factor a read batch into its distinct kmers (numpy, on the host).
+
+    Returns ``(uniq, inverse, (b, n_kmers))``: ``uniq`` is ``(U, k)`` uint8
+    in lexicographic order and ``inverse`` maps each of the ``b·n_kmers``
+    batch kmers to its row in ``uniq``.
+    """
+    arr = np.asarray(reads, dtype=np.uint8)
+    if arr.ndim == 1:
+        arr = arr[None]
+    b, read_len = arr.shape
+    n_k = read_len - k + 1
+    flat = read_kmers(arr, k)
+    # unique rows via a void byte view: one memcmp sort
+    view = flat.view(np.dtype((np.void, k))).ravel()
+    _, first, inverse = np.unique(view, return_index=True,
+                                  return_inverse=True)
+    return flat[first], inverse.reshape(-1), (b, n_k)
+
+
+def factor_unique_kmers_device(reads: torch.Tensor, k: int):
+    """:func:`factor_unique_kmers` on the reads' device: ``(uniq, inverse,
+    (b, n_kmers))`` as tensors there. ``torch.unique(dim=0)`` sorts the
+    uint8 kmer rows lexicographically, the memcmp order of the reference's
+    void-bytes sort, so both return the same ``uniq`` and ``inverse``."""
+    b, read_len = reads.shape
+    flat = reads.unfold(1, k, 1).reshape(-1, k)
+    uniq, inverse = torch.unique(flat, dim=0, return_inverse=True)
+    return uniq, inverse, (b, read_len - k + 1)
+
+
 # ---------------------------------------------------------------------------
 # The plan.
 # ---------------------------------------------------------------------------
@@ -199,15 +264,18 @@ class QueryPlan:
 
     # -- execution ----------------------------------------------------------
     def execute(self, matrix: torch.Tensor, reads, *,
-                backend: str = "torch") -> torch.Tensor:
+                backend: str = "torch", dedup: bool = False) -> torch.Tensor:
         """(B, n_kmers, W) int32: AND over η of per-probe row values.
 
         ``bit_probe`` plans extract the probed bit first, so values are
         {0, 1} per word slot; row plans return full AND-ed word masks.
-        ``matrix`` may be 1-D when ``W == 1``.
+        ``matrix`` may be 1-D when ``W == 1``. ``dedup=True`` probes each
+        distinct kmer once through the same backend (the same answers).
         """
         reads = as_reads(reads, matrix.device)
         matrix = matrix.reshape(self.matrix_shape)
+        if dedup:
+            return self._execute_dedup(matrix, reads, backend)
         if backend == "torch":
             locs = self.locations(reads)
             rows = matrix[self.row_indices(locs)]
@@ -224,12 +292,51 @@ class QueryPlan:
             tile_bytes=self.run_dma_bytes(cplan), n_runs=cplan.n_runs,
             n_probes=cplan.n_probes, run_lengths=cplan.run_lengths)
         t0 = time.perf_counter()
-        if self.bit_probe:
+        if not self.bit_probe:
+            out = probe_kernel.gather_planned_rows(matrix, cplan)
+        elif self.row_words <= PROBE_BITS_MAX_WORDS:
             out = probe_kernel.probe_planned_bits(matrix, cplan)
         else:
-            out = probe_kernel.gather_planned_rows(matrix, cplan)
+            out = probe_kernel.gather_planned_bits(matrix, cplan)
         record_stage("query", "launch", t0)
         return out
+
+    def _execute_dedup(self, matrix, reads, backend):
+        """The unique-kmer probe path, factored on the reads' device.
+
+        Each distinct kmer is probed as a standalone length-k read through
+        a derived ``(U_pad, k)`` plan (a kmer's rolling location is a
+        function of its own bases), ``U_pad`` the next power of two, the
+        pad rows repeating the last distinct kmer; they are probed in
+        order of their repetition-0 location (a stable sort), and the
+        answers go back through the inverse. The distinct kmers, the pad
+        and the sort equal the reference's, so the dedup plan's
+        ``locality.*`` counters do too.
+        """
+        k = self.cfg.k
+        uniq, inverse, (b, n_k) = factor_unique_kmers_device(reads, k)
+        u_pad = _next_pow2(uniq.shape[0])
+        if u_pad > uniq.shape[0]:
+            uniq = torch.cat([uniq, uniq[-1:].expand(
+                u_pad - uniq.shape[0], k)])
+        kplan = plan_query(
+            self.cfg, self.scheme, (u_pad, k), self.matrix_shape,
+            bit_probe=self.bit_probe, lane32=self.lane32,
+            rows_per_block=self.rows_per_block,
+            probes_per_run=self.probes_per_run, device=matrix.device)
+        locs0 = kplan.locations(uniq)[:, 0, 0]
+        order = torch.sort(locs0, stable=True).indices
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(order.numel(), device=order.device)
+        vals = kplan.execute(matrix, uniq[order], backend=backend)
+        return vals[:, 0][rank[inverse]].reshape(b, n_k, vals.shape[-1])
+
+
+# Bit probes of rows up to this many words (one 32-byte sector) take
+# probe_planned_bits, one thread per key; wider rows take the gather's bit
+# mode, a warp per key across the row. The faster of the two at each width
+# on an H100 (chip_smoke.py phase 2f; PERF.md).
+PROBE_BITS_MAX_WORDS = 8
 
 
 def _pow2_block(n_rows: int, target: int) -> int:
@@ -284,6 +391,33 @@ def plan_query(
         bit_probe=bit_probe, lane32=lane32,
         rows_per_block=rows_per_block, probes_per_run=probes_per_run,
     )
+
+
+class PlanCacheInfo(NamedTuple):
+    """``lru_cache`` stats plus the eviction count of a bounded cache:
+    every miss inserts one entry and ``currsize`` counts the kept ones, so
+    ``misses - currsize`` were pushed out (both reset on clear)."""
+
+    hits: int
+    misses: int
+    maxsize: Optional[int]
+    currsize: int
+    evictions: int
+
+
+def _with_evictions(info) -> PlanCacheInfo:
+    return PlanCacheInfo(
+        hits=info.hits, misses=info.misses, maxsize=info.maxsize,
+        currsize=info.currsize, evictions=info.misses - info.currsize)
+
+
+def plan_cache_info() -> PlanCacheInfo:
+    """Stats of the (bounded) query-plan cache."""
+    return _with_evictions(plan_query.cache_info())
+
+
+def clear_plan_cache() -> None:
+    plan_query.cache_clear()
 
 
 def _finish_probe(rows: torch.Tensor, locs: torch.Tensor, *,

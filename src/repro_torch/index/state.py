@@ -1,9 +1,9 @@
 """Functional index state: word matrices plus static meta.
 
-Port of :mod:`repro.index.state` for the flat-filter and bit-sliced
-engines. An
+Port of :mod:`repro.index.state` for all four engines. An
 :class:`IndexState` is a tuple of packed ``(n_rows, W)`` int32 word
-matrices and a hashable :class:`StateMeta`; engines are thin views over it.
+matrices (one per COBS size group, one for every other engine) and a
+hashable :class:`StateMeta`; engines are thin views over it.
 
 Inserts update the word matrix **in place** (torch has no donation); the
 consumed-value guard stays: an insert marks its input value consumed, and
@@ -126,6 +126,24 @@ def from_engine(index) -> IndexState:
             meta=StateMeta(engine="bloom", scheme=index.scheme,
                            cfgs=(index.cfg,)),
         )
+    if isinstance(index, engines.CobsIndex):
+        ensure_live(index, what="engine")
+        return IndexState(
+            words=tuple(g.words for g in index.groups),
+            meta=StateMeta(
+                engine="cobs", scheme=index.scheme,
+                cfgs=tuple(g.cfg for g in index.groups),
+                n_files=index.n_files, k=index.k,
+                group_file_ids=tuple(g.file_ids for g in index.groups)),
+        )
+    if isinstance(index, engines.RamboIndex):
+        ensure_live(index, what="engine")
+        return IndexState(
+            words=(index.words,),
+            meta=StateMeta(engine="rambo", scheme=index.scheme,
+                           cfgs=(index.cfg,), n_files=index.n_files,
+                           n_buckets=index.n_buckets, n_rep=index.n_rep),
+        )
     if isinstance(index, engines.BitSlicedIndex):
         ensure_live(index, what="engine")
         return IndexState(
@@ -133,7 +151,7 @@ def from_engine(index) -> IndexState:
             meta=StateMeta(engine="bitsliced", scheme=index.scheme,
                            cfgs=(index.cfg,), n_files=index.n_files),
         )
-    raise TypeError(f"not a ported engine or IndexState: {type(index)!r}")
+    raise TypeError(f"not a GeneIndex engine or IndexState: {type(index)!r}")
 
 
 def to_engine(state: IndexState):
@@ -145,13 +163,22 @@ def to_engine(state: IndexState):
     if meta.engine == "bloom":
         return engines.PackedBloomIndex(
             cfg=meta.cfgs[0], scheme=meta.scheme, words=state.words[0])
+    if meta.engine == "cobs":
+        return engines.CobsIndex(
+            groups=tuple(
+                engines.CobsGroupState(cfg=cfg, file_ids=fids, words=w)
+                for cfg, fids, w in zip(meta.cfgs, meta.group_file_ids,
+                                        state.words)),
+            scheme=meta.scheme, n_files=meta.n_files, k=meta.k)
+    if meta.engine == "rambo":
+        return engines.RamboIndex(
+            cfg=meta.cfgs[0], scheme=meta.scheme, n_files=meta.n_files,
+            n_buckets=meta.n_buckets, n_rep=meta.n_rep, words=state.words[0])
     if meta.engine == "bitsliced":
         return engines.BitSlicedIndex(
             cfg=meta.cfgs[0], scheme=meta.scheme, n_files=meta.n_files,
             words=state.words[0])
-    raise NotImplementedError(
-        f"engine kind {meta.engine!r} is not ported yet (bloom and "
-        "bitsliced only)")
+    raise ValueError(f"unknown engine kind {meta.engine!r}")
 
 
 def insert(state: IndexState, reads, file_ids=None, *, donate: bool = True,

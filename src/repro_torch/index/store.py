@@ -3,7 +3,9 @@
 Port of :mod:`repro.index.store`, with the same format: one directory
 holding ``manifest.json`` (format tag, integer version, ``StateMeta``, and
 per-array shape / dtype / CRC-32) and one ``words_<i>.npy`` (uint32) per
-word matrix. Snapshots written by either package load in the other.
+word matrix (a COBS index writes one per size group). Snapshots of every
+engine written by either package load in the other; shard-set snapshots
+are not read here.
 
 ``verify`` picks when the checksum pass runs: ``"eager"`` (before ``load``
 returns), ``"lazy"`` (a background thread; :func:`check_verified` reports

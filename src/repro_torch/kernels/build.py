@@ -113,28 +113,31 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
-    """Call the C entry point of kernel ``name`` (the function of the same
-    name in its library), typed as ``argtypes`` -> ``int``, with ``args``
-    and the current stream of ``device``; raise if it returns a CUDA error.
+def launch(name: str, argtypes: list, device: torch.device, *args,
+           entry: str | None = None) -> None:
+    """Call the C entry point ``entry`` (default ``name``, the function of
+    the same name) of kernel ``name``'s library, typed as ``argtypes`` ->
+    ``int``, with ``args`` and the current stream of ``device``; raise if it
+    returns a CUDA error.
 
     The typed entry point is resolved once and kept, and the device context
     is entered only when ``device`` is not the current one: the wrapper's
     host cost is paid on every launch of a small kernel.
     """
-    fn = _entries.get(name)
+    entry = entry or name
+    fn = _entries.get(entry)
     if fn is None:
-        fn = getattr(library(name), name)
+        fn = getattr(library(name), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _entries[name] = fn
+        _entries[entry] = fn
     if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     else:
         with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry}: launch failed with CUDA error {err}")
 
 
 _entries: dict = {}

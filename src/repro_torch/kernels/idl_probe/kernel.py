@@ -6,8 +6,11 @@ in probe order, and write one answer per key: the AND over the η
 repetitions, which the reference computes after its kernel.
 ``gather_planned_rows`` replaces the Pallas kernel
 ``repro/kernels/idl_probe/kernel.py::probe_rows`` (rows of a packed
-matrix); ``probe_planned_bits`` replaces the flat-filter Pallas kernel
-``probe_runs`` (bits of the packed words). No run plan, pad lane or probe
+matrix); its bit mode ``gather_planned_bits`` (the same source, for wide
+rows: RAMBO's transposed ``(m/32, R·B)`` filters) replaces ``probe_rows``
+followed by the reference's bit extraction; ``probe_planned_bits``
+replaces the flat-filter Pallas kernel ``probe_runs`` (bits of the packed
+words, one thread per key). No run plan, pad lane or probe
 index reaches the card. The main path's operand is a
 :class:`CompactProbePlan`, which holds the stream with its smallest and
 largest element on the host; a bare tensor's are read from the device. A
@@ -31,6 +34,8 @@ NAME = "gather_planned_rows"
 SOURCE = "src/repro_torch/csrc/gather_planned_rows.cu"
 REPLACES = "src/repro/kernels/idl_probe/kernel.py:99"
 
+BIT_MODE_NAME = "gather_planned_bits"    # the bit mode's C entry point
+
 BITS_NAME = "probe_planned_bits"
 BITS_SOURCE = "src/repro_torch/csrc/probe_planned_bits.cu"
 BITS_REPLACES = "src/repro/kernels/idl_probe/kernel.py:149"
@@ -38,8 +43,9 @@ BITS_REPLACES = "src/repro/kernels/idl_probe/kernel.py:149"
 # Kernel launches so far, one counter per kernel (reset and read by callers
 # that must show the kernel ran); they count launches only, never the plain
 # versions.
-launches = 0        # gather_planned_rows
-bits_launches = 0   # probe_planned_bits
+launches = 0            # gather_planned_rows
+bit_mode_launches = 0   # gather_planned_bits, its bit mode
+bits_launches = 0       # probe_planned_bits
 
 # the C entry points' arguments, the stream last
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
@@ -109,15 +115,49 @@ def gather_planned_rows(matrix: torch.Tensor,
     _check(NAME, matrix, (2,), rows, bounds, matrix.shape[0])
     if matrix.device.type == "cpu":
         return ref.gather_and_ref(matrix, rows)
+    out = _launch_gather(matrix, rows, NAME)
+    if out.numel():
+        global launches
+        launches += 1
+    return out
+
+
+def gather_planned_bits(matrix: torch.Tensor,
+                        operand: torch.Tensor | CompactProbePlan
+                        ) -> torch.Tensor:
+    """The bit mode of :func:`gather_planned_rows`: ``out[..., k, w] = AND_e
+    bit (loc & 31) of matrix[loc >> 5, w]`` with ``loc = locs[..., e, k]``,
+    the ``(..., n_k, W)`` int32 {0, 1} answers of an ``(n_rows, W)`` int32
+    matrix for a ``(..., η, n_k)`` int64 tensor of bit locations. What
+    :func:`probe_planned_bits` computes, laid out for wide rows: a warp per
+    key, its lanes across the row.
+
+    The operand is a :class:`CompactProbePlan` or a bare tensor; a location
+    past ``32 · n_rows`` raises before anything is launched.
+    """
+    locs, bounds = _operand(operand)
+    _check(BIT_MODE_NAME, matrix, (2,), locs, bounds, 32 * matrix.shape[0])
+    if matrix.device.type == "cpu":
+        return ref.gather_bits_and_ref(matrix, locs)
+    out = _launch_gather(matrix, locs, BIT_MODE_NAME)
+    if out.numel():
+        global bit_mode_launches
+        bit_mode_launches += 1
+    return out
+
+
+def _launch_gather(matrix: torch.Tensor, rows: torch.Tensor,
+                   entry: str) -> torch.Tensor:
+    """Launch ``entry`` of ``gather_planned_rows.cu`` (the row gather or its
+    bit mode) into a new answers' tensor, unless it is empty."""
     w = matrix.shape[1]
     out = _out(matrix, rows)
     if out.numel():
         vector = w % 4 == 0 and matrix.data_ptr() % 16 == 0
         build.launch(NAME, _ARGTYPES, matrix.device, matrix.data_ptr(),
                      rows.data_ptr(), out.data_ptr(), out.numel() // w,
-                     rows.shape[-1], rows.shape[-2], w, int(vector))
-        global launches
-        launches += 1
+                     rows.shape[-1], rows.shape[-2], w, int(vector),
+                     entry=entry)
     return out
 
 

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the ``gather_planned_rows`` and
-``probe_planned_bits`` kernels, the reference's run-plan probe layout, and
-the flat-filter probe oracle."""
+"""Plain PyTorch versions of the ``gather_planned_rows`` kernel (and its bit
+mode) and the ``probe_planned_bits`` kernel, the reference's run-plan probe
+layout, and the flat-filter probe oracle."""
 
 from __future__ import annotations
 
@@ -28,19 +28,27 @@ def gather_and_ref(matrix: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return and_reduce(matrix[rows], dim=-3)
 
 
+def gather_bits_and_ref(matrix: torch.Tensor, locs: torch.Tensor
+                        ) -> torch.Tensor:
+    """(..., n_k, W) int32 {0, 1}: the AND over η of bit ``loc & 31`` of
+    every word of row ``loc >> 5`` of the (n_rows, W) ``matrix``, for the
+    (..., η, n_k) int64 bit locations ``locs`` (the bit mode of
+    ``gather_planned_rows``)."""
+    bits = (matrix[locs >> 5] >> (locs & 31)[..., None]) & 1
+    return and_reduce(bits, dim=-3).to(torch.int32)
+
+
 def probe_bits_and_ref(words: torch.Tensor, locs: torch.Tensor
                        ) -> torch.Tensor:
     """(..., n_k) int32 {0, 1}: the AND over η of bit ``loc & 31`` of word
     ``loc >> 5`` of the packed (n_words,) ``words``, for the (..., η, n_k)
-    int64 bit locations ``locs``; (..., n_k, W) of bit ``loc & 31`` of
-    every word of row ``loc >> 5`` of an (n_rows, W) matrix.
-    :func:`query_membership_ref` over (η, n) locations is the flat case."""
-    shift = locs & 31
+    int64 bit locations ``locs``; of an (n_rows, W) matrix, (..., n_k, W)
+    as :func:`gather_bits_and_ref`. :func:`query_membership_ref` over (η, n)
+    locations is the flat case."""
     if words.dim() == 2:
-        shift = shift[..., None]
-    bits = (words[locs >> 5] >> shift) & 1
-    return and_reduce(bits, dim=-3 if words.dim() == 2 else -2).to(
-        torch.int32)
+        return gather_bits_and_ref(words, locs)
+    bits = (words[locs >> 5] >> (locs & 31)) & 1
+    return and_reduce(bits, dim=-2).to(torch.int32)
 
 
 def probe_runs_ref(

@@ -1,7 +1,7 @@
 """Gene-search serving: typed requests, shape-bucketed dynamic batching.
 
-Port of :mod:`repro.serving.service` for the flat-filter and bit-sliced
-engines (the membership cache is left out).
+Port of :mod:`repro.serving.service` for all four engines (the membership
+cache is left out).
 
 * **Typed boundary** — :class:`SearchRequest` in (one read of any length
   >= k), :class:`SearchResult` out (per-file verdicts + decoded ids + the
@@ -18,8 +18,10 @@ engines (the membership cache is left out).
   occupancy, padding and wall time (:class:`BatchStats`).
 * **Snapshot-backed startup** — :meth:`GeneSearchService.from_snapshot`.
 
-The default backend is ``"idl_probe"``: one ``gather_planned_rows`` kernel
-launch per served bucket batch on a CUDA index.
+The default backend is ``"idl_probe"``: per served bucket batch on a CUDA
+index, one kernel launch (``gather_planned_rows`` for the bit-sliced index,
+one per size group for COBS; its bit mode for RAMBO; ``probe_planned_bits``
+for the flat filter).
 """
 
 from __future__ import annotations
@@ -144,7 +146,8 @@ def emit_request_spans(entries, *, bucket: int, t0: float, t_asm: float,
 def _msmt_reduce(kind: str, n_files: int, theta: float, per, valid, need):
     """Per-kmer engine output -> per-request verdicts, with pad kmers masked
     and per-row thresholds (the one theta rule): (B, n_files) bool for the
-    bit-sliced index, (B,) bool for the single-set flat filter."""
+    bit-sliced index (from packed masks), COBS and RAMBO (from per-file
+    kmer hits), (B,) bool for the single-set flat filter."""
     if kind == "bitsliced":
         if theta >= 1.0:
             # a row matches iff all its valid kmers hit: the masked AND path
@@ -155,20 +158,12 @@ def _msmt_reduce(kind: str, n_files: int, theta: float, per, valid, need):
     return query.member_coverage(per, theta, valid=valid, need=need)
 
 
-SERVED_ENGINES = ("bloom", "bitsliced")
-
-
 class GeneSearchService:
-    """Dynamic-batching front-end over a flat-filter or bit-sliced
-    :class:`IndexState`."""
+    """Dynamic-batching front-end over any engine's :class:`IndexState`."""
 
     def __init__(self, index, config: Optional[ServiceConfig] = None):
         self.config = config or ServiceConfig()
         self._state = state_mod.from_engine(index)
-        if self._state.meta.engine not in SERVED_ENGINES:
-            raise NotImplementedError(
-                f"serving engine {self._state.meta.engine!r} is not ported "
-                f"yet (one of {SERVED_ENGINES})")
         self._k = state_mod.kmer_size(self._state.meta)
         self._next_id = 0
         self._pending: Dict[int, List[Tuple[SearchRequest, int]]] = {}

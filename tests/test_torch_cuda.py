@@ -411,3 +411,102 @@ def test_flat_filter_backends_agree_on_cuda(cuda, scheme):
     assert torch.equal(a, planned.query_batch(queries, backend="torch"))
     assert torch.equal(a.cpu(), host.query_batch(queries))
     assert planned.msmt(queries[:8]).all()
+
+
+# -- the gather's bit mode, and the engines that run it ----------------------
+
+@pytest.mark.parametrize("w", [1, 8, 320])
+@pytest.mark.parametrize("eta", [1, 3, 4])
+def test_gather_planned_bits_kernel_vs_plain(cuda, w, eta):
+    """The bit mode's AND over eta of shifted words at the flat width, a
+    width whose units form lane groups and RAMBO's 320 words (looped
+    units); ragged n_k, locations at the matrix's last bit; from a compact
+    plan and from a bare tensor."""
+    rng = np.random.default_rng(100 * w + eta)
+    n_rows = 1 << 10
+    matrix = _matrix(rng, n_rows, w, cuda)
+    locs = rng.integers(0, 32 * n_rows, size=(5, eta, 37))
+    locs[1] = np.sort(rng.integers(0, 32 * 64, size=(eta, 37)), axis=1)
+    locs[2, :, 0] = 32 * n_rows - 1
+    locs[3, :, ::3] |= 31
+    locs = torch.as_tensor(locs, device=cuda)
+    plan = probe_ops.compact_probe_plan(locs, 32 * 64)
+    before = probe_kernel.bit_mode_launches
+    got = probe_kernel.gather_planned_bits(matrix, plan)
+    bare = probe_kernel.gather_planned_bits(matrix, locs)
+    torch.cuda.synchronize()
+    assert probe_kernel.bit_mode_launches == before + 2
+    want = probe_ref.gather_bits_and_ref(matrix, locs)
+    assert got.shape == (5, 37, w) and 0 < int(want.sum()) < want.numel()
+    assert torch.equal(got, want) and torch.equal(bare, want)
+    assert torch.equal(got, probe_kernel.probe_planned_bits(matrix, plan))
+    assert torch.equal(got.cpu(), probe_ref.gather_bits_and_ref(
+        matrix.cpu(), locs.cpu()))
+
+
+def test_gather_planned_bits_misaligned_view_empty_batch_and_bounds(cuda):
+    """A 320-word matrix view 4 bytes past a 16-byte boundary (4-byte word
+    path), an empty batch (no launch), a location past the last bit."""
+    rng = np.random.default_rng(7)
+    n_rows, w = 512, 320
+    base = _matrix(rng, n_rows * w + 1, 1, cuda).reshape(-1)
+    matrix = base[1:].view(n_rows, w)
+    assert matrix.data_ptr() % 16 == 4
+    locs = torch.as_tensor(rng.integers(0, 32 * n_rows, size=(3, 4, 50)),
+                           device=cuda)
+    got = probe_kernel.gather_planned_bits(matrix, locs)
+    assert torch.equal(got, probe_ref.gather_bits_and_ref(matrix, locs))
+    before = probe_kernel.bit_mode_launches
+    for shape in ((0, 4, 200), (3, 4, 0)):
+        out = probe_kernel.gather_planned_bits(
+            matrix, torch.zeros(shape, dtype=torch.int64, device=cuda))
+        assert out.shape == (shape[0], shape[2], w)
+    torch.cuda.synchronize()
+    assert probe_kernel.bit_mode_launches == before
+    with pytest.raises(ValueError):
+        probe_kernel.gather_planned_bits(matrix, locs + 32 * n_rows)
+
+
+@pytest.mark.parametrize("kind", ["cobs", "rambo"])
+def test_cobs_rambo_msmt_on_cuda(cuda, kind):
+    """COBS and RAMBO on the card: inserts and queries through the kernels
+    equal the plain backends and the CPU; one launch per query (per size
+    group for COBS, of the bit mode for RAMBO); dedup changes nothing; a
+    RAMBO query after an insert sees the new file."""
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 10, eta=3, m=1 << 20)
+    rng = np.random.default_rng(11)
+    genomes = rng.integers(0, 4, size=(7, 400), dtype=np.uint8)
+    sizes = [370, 120, 800, 240, 500, 310, 90]
+
+    def build(device):
+        if kind == "cobs":
+            return engines.CobsIndex.build(sizes, cfg, n_groups=3,
+                                           device=device)
+        # R·B = 10 words a transposed row: the bit mode's route
+        return engines.RamboIndex.build(7, cfg, B=5, R=2, device=device)
+
+    engs = {}
+    for name, device, backend in (("planned", cuda, "idl_insert"),
+                                  ("plain", cuda, "torch"),
+                                  ("cpu", "cpu", "idl_insert")):
+        engs[name] = build(device).insert_batch(genomes[:6], np.arange(6),
+                                                backend=backend)
+    for a, b in zip(engs["planned"].state.words, engs["plain"].state.words):
+        assert torch.equal(a, b)
+    reads = np.concatenate([genomes[:, 30:260], rng.integers(
+        0, 4, size=(3, 230), dtype=np.uint8)])
+    counter = "launches" if kind == "cobs" else "bit_mode_launches"
+    per_query = 3 if kind == "cobs" else 1
+    before = getattr(probe_kernel, counter)
+    got = engs["planned"].msmt(reads, theta=0.6)
+    assert getattr(probe_kernel, counter) == before + per_query
+    assert torch.equal(got, engs["planned"].msmt(reads, theta=0.6,
+                                                 backend="torch"))
+    assert torch.equal(got.cpu(), engs["cpu"].msmt(reads, theta=0.6))
+    assert torch.equal(got, engs["planned"].msmt(reads, theta=0.6,
+                                                 dedup=True))
+    assert got.cpu().numpy()[np.arange(6), np.arange(6)].all()
+    if kind == "rambo":
+        assert not bool(got[6, 6])
+        eng = engs["planned"].insert_batch(genomes[6:], [6])
+        assert bool(eng.msmt(reads[6:7])[0, 6])
