@@ -587,11 +587,11 @@ def stage_means(snap, ingest_s: float, batch_ms: list) -> dict:
     return stages
 
 
-def main_path_phase(cfg, archive, dev) -> dict:
+def main_path_phase(cfg, archive, dev) -> tuple:
     """Phase 3: ingest the archive and serve batches through the entry
     points a user calls, with the launch counters zeroed just before and
     read just after; then the mean host time of each planner stage over
-    that run. Returns the launch counts."""
+    that run. Returns the launch counts and the index."""
     from repro_torch.index import BitSlicedIndex, build_archive
     from repro_torch.kernels.idl_insert import ops as ins_ops
     from repro_torch.kernels.idl_probe import ops as probe_ops
@@ -681,7 +681,7 @@ def main_path_phase(cfg, archive, dev) -> dict:
           f"{tile_i:.0f}")
     print("phase 3 where the time goes (host ms per batch, means over the "
           "main path's run): " + json.dumps(stages, sort_keys=True))
-    return launches
+    return launches, eng
 
 
 def window_min_phase(dev) -> dict:
@@ -1372,14 +1372,15 @@ def serve_checks(eng, archive, cfg, per_query: int) -> dict:
 
 
 def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
-                      per_query: int, held_out: bool) -> dict:
+                      per_query: int, held_out: bool) -> tuple:
     """Phases 5 and 6: ingest the archive through ``build_archive(backend=
     "idl_insert")`` in 512-read batches (no numpy run planner), then
     :func:`serve_checks`; with ``held_out`` the archive's last file is left
     out of the build, a query of its reads must miss it, and after its
     insert a query must find it. Launch counters are zeroed just before and
     read just after; ``probe`` must launch ``per_query`` times per query
-    and the other probe kernels never. Returns the launch counts."""
+    and the other probe kernels never. Returns the launch counts and the
+    index."""
     from repro_torch.data import genome
     from repro_torch.index import build_archive
     from repro_torch.kernels.idl_insert import ops as ins_ops
@@ -1463,7 +1464,7 @@ def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
           f"the path's run; the query stages also time the random and dedup "
           f"queries, and any held-out file's): "
           + json.dumps(stages, sort_keys=True))
-    return launches
+    return launches, eng
 
 
 def cobs_path_phase(cfg, archive, dev) -> dict:
@@ -1476,7 +1477,7 @@ def cobs_path_phase(cfg, archive, dev) -> dict:
                           "idl", 10.0, 2, device=dev)
     return engine_path_phase("5 COBS", eng, archive, cfg,
                              probe="gather_planned_rows",
-                             per_query=len(eng.groups), held_out=False)
+                             per_query=len(eng.groups), held_out=False)[0]
 
 
 def minimizer_phase(cfg, archive, dev) -> dict:
@@ -1538,12 +1539,13 @@ def minimizer_phase(cfg, archive, dev) -> dict:
     return launches
 
 
-def rambo_path_phase(cfg, archive, dev) -> dict:
+def rambo_path_phase(cfg, archive, dev) -> tuple:
     """Phase 6: RAMBO over the archive (``RamboIndex.build(1024, cfg at m =
     2^25 bits a bucket, "idl")``: B 32, R 10, (320, 2^20) int32 words),
     ``"rows"`` inserts of 10 targets per kmer and repetition, one bit-mode
     launch per query; the archive's last file goes in after the build and a
-    query after its insert must see it."""
+    query after its insert must see it. Returns the launch counts and the
+    index."""
     from repro_torch.index import RamboIndex
 
     eng = RamboIndex.build(len(archive), engine_config(cfg, RAMBO_M), "idl",
@@ -1552,6 +1554,522 @@ def rambo_path_phase(cfg, archive, dev) -> dict:
     return engine_path_phase("6 RAMBO", eng, archive, cfg,
                              probe="gather_planned_bits", per_query=1,
                              held_out=True)
+
+
+# -- phases 7a-7c: the serving tier (cache, scheduler, router, live index) ----
+
+HELD_OUT = 8                    # archive files kept out of the tier's base
+CACHE_CAPACITY = 1 << 19        # kmers: one pass of phase 3's traffic fits
+TIER_DELAY_MS = 20.0            # scheduler deadline: batches fill to 256
+WAIT_S = 600                    # every future's own timeout
+
+
+def serve_traffic(archive, cfg) -> list:
+    """Phase 3's serve batches: ``SERVE_BATCHES`` x 256 ``(file id, read)``
+    pairs from the same seed."""
+    qrng = np.random.default_rng(0)
+    batches = []
+    for _ in range(SERVE_BATCHES):
+        fids = qrng.integers(0, cfg.n_files, size=SERVE_BATCH)
+        batches.append([(int(f), archive[int(f)].reads(cfg.read_len, 1)[0])
+                        for f in fids])
+    return batches
+
+
+def shifted_reads(archive, batch) -> list:
+    """Each read of ``batch`` moved one base along its genome."""
+    out = []
+    for fid, read in batch:
+        g = archive[fid].genome
+        pos = g.tobytes().find(read.tobytes())
+        pos += 1 if pos + len(read) < len(g) else -1
+        out.append((fid, g[pos:pos + len(read)]))
+    return out
+
+
+def resolve(futures) -> list:
+    return [f.result(timeout=WAIT_S) for f in futures]
+
+
+def uncounted(fn):
+    """Run ``fn`` (an oracle's comparison run) with the launch counters
+    restored after it: its launches do not count for the path."""
+    counts = read_launches()
+    try:
+        return fn()
+    finally:
+        for name, mod, attr in _counters():
+            setattr(mod, attr, counts[name])
+
+
+def direct_answers(svc, reads, batch_ms=None) -> list:
+    """``svc.search`` in batches of ``SERVE_BATCH``: the (n_files,) verdict
+    rows; the wall ms of each batch go to ``batch_ms``."""
+    rows = []
+    for i in range(0, len(reads), SERVE_BATCH):
+        t0 = time.perf_counter()
+        rows += [r.matches for r in svc.search(reads[i:i + SERVE_BATCH])]
+        if batch_ms is not None:
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+    return rows
+
+
+def same_rows(got, want) -> bool:
+    return len(got) == len(want) and all(
+        np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def pipelined_rate(rt, reads, want) -> float:
+    """Requests a second when every read is submitted at once (batches
+    overlap in the pipeline and across replicas); answers checked."""
+    t0 = time.perf_counter()
+    got = resolve([rt.submit(read) for read in reads])
+    rate = len(reads) / (time.perf_counter() - t0)
+    check(same_rows([r.matches for r in got], want),
+          "pipelined pass == direct service")
+    return rate
+
+
+def routed_pass(rt, batches) -> tuple:
+    """Submit each 256-read batch and wait for its futures before the next
+    (so a batch is the router's batch); returns the results, and the
+    router's per-batch records of the pass."""
+    n0 = len(rt.cluster_stats())
+    results = []
+    for batch in batches:
+        results += resolve([rt.submit(read) for _, read in batch])
+    return results, rt.cluster_stats()[n0:]
+
+
+def cache_copies(services) -> tuple:
+    """(bytes up, bytes down) the services' cached paths copied so far."""
+    sums = [0, 0]
+    for svc in services:
+        for i, n in enumerate(svc.cache_copy_bytes()):
+            sums[i] += n
+    return tuple(sums)
+
+
+def stage_hists() -> dict:
+    """``{"op.stage": (calls, total ms)}`` of the planner's stage timers
+    and of the cached path's (``cache.<stage>``), read now."""
+    from repro_torch.obs import metrics as obs_metrics
+
+    hists = obs_metrics.DEFAULT.snapshot()["hists"]
+    out = {}
+    for name in ("planner.stage_ms", "serving.cache_stage_ms"):
+        for key, h in hists.get(name, {}).items():
+            labels = obs_metrics.parse_label_key(key)
+            out[f"{labels.get('op', 'cache')}.{labels['stage']}"] = \
+                (h["count"], h["sum"])
+    return out
+
+
+def stage_delta(before: dict, after: dict, n_batches=None) -> dict:
+    """Host ms of each stage between two :func:`stage_hists` readings: per
+    batch (the stage's total over ``n_batches``; a stage may run zero or
+    several times in a batch) or, without ``n_batches``, per call with the
+    call count."""
+    out = {}
+    for tag, (calls, total) in after.items():
+        c0, t0 = before.get(tag, (0, 0.0))
+        if calls > c0:
+            out[tag] = (round((total - t0) / n_batches, 3) if n_batches
+                        else {"mean_ms": round((total - t0) / (calls - c0),
+                                               3), "calls": calls - c0})
+    return out
+
+
+def stats_line(stats) -> dict:
+    walls = [s.wall_ms for s in stats]
+    hits = sum(s.cache_hits for s in stats)
+    lookups = sum(s.cache_lookups for s in stats)
+    return {"batches": len(stats), "mean_wall_ms": sum(walls) / len(walls),
+            "wall_ms": [round(w, 3) for w in walls],
+            "hit_rate": hits / lookups if lookups else None}
+
+
+def tier_phase(cfg, archive, full_eng, dev) -> tuple:
+    """Phase 7a: a base of the archive less its last ``HELD_OUT`` files,
+    served with the membership cache through ``ReplicaRouter`` (2 replicas
+    on the card, one shared base), checked against an uncached direct
+    service; then a hot swap to phase 3's full index (the union) under
+    traffic. Returns the launch counts and the base."""
+    from repro_torch.index import BitSlicedIndex, build_archive
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving import (GeneSearchService, KmerCacheConfig,
+                                     ReplicaRouter, RouterConfig,
+                                     SchedulerConfig, ServiceConfig)
+
+    obs_metrics.reset()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    base = build_archive(
+        BitSlicedIndex.build(cfg.idl_config(), cfg.scheme, cfg.n_files,
+                             device=dev),
+        archive[:-HELD_OUT], read_len=cfg.read_len,
+        chunk_reads=INSERT_BATCH, backend="idl_insert")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    traffic = serve_traffic(archive, cfg)
+    flat = [read for batch in traffic for _, read in batch]
+    shifted = shifted_reads(archive, traffic[0])
+    held = [(f.file_id, f.reads(cfg.read_len, 1)[0])
+            for f in archive[-HELD_OUT:]]
+    extra = [read for _, read in shifted] + [read for _, read in held]
+    svc_cfg = dict(theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe")
+    direct = GeneSearchService(base, ServiceConfig(**svc_cfg))
+    union = GeneSearchService(full_eng, ServiceConfig(**svc_cfg))
+    uncached_ms = []
+    want = uncounted(lambda: direct_answers(direct, flat, uncached_ms))
+    want_extra = uncounted(lambda: direct_answers(direct, extra))
+    want_union = uncounted(lambda: direct_answers(union, flat + extra))
+    check(not any(row[f] for (f, _), row in
+                  zip(held, want_extra[-HELD_OUT:])),
+          "the base misses every held-out file")
+    check(all(row[f] for (f, _), row in zip(held, want_union[-HELD_OUT:])),
+          "the union index finds every held-out file")
+    cache = KmerCacheConfig(capacity=CACHE_CAPACITY)
+    sched = SchedulerConfig(max_delay_ms=TIER_DELAY_MS)
+
+    # one replica: the uncached and cached batch times, the hit rate
+    walls, rates = {}, {}
+    with ReplicaRouter(base, ServiceConfig(**svc_cfg), RouterConfig(
+            n_replicas=1, scheduler=sched)) as rt:
+        rates["uncached, 1 replica"] = pipelined_rate(rt, flat, want)
+        h0 = stage_hists()
+        got, stats = routed_pass(rt, traffic)
+        check(same_rows([r.matches for r in got], want),
+              "uncached router == direct service")
+        walls["uncached_router"] = stats_line(stats)
+        walls["uncached_router"]["stages_ms_per_batch"] = stage_delta(
+            h0, stage_hists(), len(stats))
+    with ReplicaRouter(base, ServiceConfig(**svc_cfg, kmer_cache=cache),
+                       RouterConfig(n_replicas=1, scheduler=sched)) as rt:
+        svcs = [rt._replicas[0].service]
+        for name, batches, oracle in (("cold", traffic, want),
+                                      ("warm", traffic, want),
+                                      ("shifted", [shifted],
+                                       want_extra[:SERVE_BATCH])):
+            before, h0 = cache_copies(svcs), stage_hists()
+            got, stats = routed_pass(rt, batches)
+            after = cache_copies(svcs)
+            check(same_rows([r.matches for r in got], oracle),
+                  f"{name} cached router == direct service")
+            walls[name] = stats_line(stats)
+            walls[name]["stages_ms_per_batch"] = stage_delta(
+                h0, stage_hists(), len(stats))
+            walls[name]["bytes_up_per_batch"] = \
+                (after[0] - before[0]) / len(stats)
+            walls[name]["bytes_down_per_batch"] = \
+                (after[1] - before[1]) / len(stats)
+        check(walls["warm"]["hit_rate"] == 1.0,
+              f"pass two's hit rate on one replica is 1.0 "
+              f"({walls['warm']['hit_rate']})")
+        rates["warm cache, 1 replica"] = pipelined_rate(rt, flat, want)
+    with ReplicaRouter(base, ServiceConfig(**svc_cfg), RouterConfig(
+            n_replicas=2, scheduler=sched)) as rt:
+        rates["uncached, 2 replicas"] = pipelined_rate(rt, flat, want)
+
+    # two replicas sharing the base: both passes, shifted and held-out reads
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rt = ReplicaRouter(base, ServiceConfig(**svc_cfg, kmer_cache=cache),
+                       RouterConfig(n_replicas=2, scheduler=sched))
+    try:
+        states = [r.service.state for r in rt._replicas]
+        check(states[0].words[0].data_ptr() == states[1].words[0].data_ptr()
+              == base.words.data_ptr(), "the 2 replicas share one base")
+        futures = [rt.submit(read) for read in flat + extra]
+        got = [r.matches for r in resolve(futures)]
+        check(same_rows(got, want + want_extra),
+              "2-replica cached router == direct service (traffic, "
+              "shifted and held-out reads)")
+        first = rt.cache_stats()
+        rates["cached second pass, 2 replicas"] = pipelined_rate(
+            rt, flat, want)
+        second = rt.cache_stats()
+        rates["hit rate of that pass"] = (second["hits"] - first["hits"]) \
+            / (second["lookups"] - first["lookups"])
+        found_before = sum(bool(row[f]) for (f, _), row in
+                           zip(held, got[-HELD_OUT:]))
+        check(found_before == 0, "held-out files found 0 of 8 on the base")
+        two_rep = rt.cache_stats()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+        check(peak < base.state.nbytes,
+              f"serving 2 replicas added {peak} B, less than a second base")
+        # hot swap to the union index while traffic flows
+        counts0 = rt.compile_counts()
+        inv0 = two_rep["invalidations"]
+        first = [rt.submit(read) for read in flat + extra]
+        t_swap = time.perf_counter()
+        version = rt.swap_state(full_eng)
+        swap_ms = 1e3 * (time.perf_counter() - t_swap)
+        second = [rt.submit(read) for read in flat + extra]
+        res_first, res_second = resolve(first), resolve(second)
+        check(version == 1 and {r.version for r in res_second} == {1},
+              "every request after the swap served by version 1")
+        oracle = {0: want + want_extra, 1: want_union}
+        check(all(np.array_equal(r.matches, oracle[r.version][i])
+                  for i, r in enumerate(res_first))
+              and same_rows([r.matches for r in res_second], want_union),
+              "answers across the swap == the direct service of the "
+              "version that served them")
+        for rid in (0, 1):
+            vs = [s.version for s in rt.cluster_stats() if s.replica == rid]
+            check(vs == sorted(vs), f"replica {rid}: versions monotone")
+        found_after = sum(bool(r.matches[f]) for (f, _), r in
+                          zip(held, res_second[-HELD_OUT:]))
+        check(found_after == HELD_OUT, "held-out files found 8 of 8 after "
+              "the swap")
+        swapped = rt.cache_stats()
+        check(swapped["invalidations"] > inv0,
+              "the swap invalidated the caches")
+        check(rt.compile_counts() == counts0, "runners unchanged by the swap")
+        check(all(r.service.state.words[0].data_ptr()
+                  == full_eng.words.data_ptr() for r in rt._replicas),
+              "both replicas share the swapped-in index")
+    finally:
+        rt.close()
+    launches = read_launches()
+    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+        check(launches[name] > 0, f"{name} launched on the tier path")
+    check(launches["probe_planned_bits"] == launches["gather_planned_bits"]
+          == 0, "no bit probe on the bit-sliced tier")
+    n_base = cfg.n_files - HELD_OUT
+    print(f"phase 7a cached routed serving: ok — base of {n_base} files "
+          f"built in {build_s:.3f} s; traffic phase 3's "
+          f"{SERVE_BATCHES} x {SERVE_BATCH} reads; every answer == the "
+          f"uncached direct service; one replica, pass two hit rate "
+          f"{walls['warm']['hit_rate']}; batch wall ms (mean) direct "
+          f"uncached {sum(uncached_ms) / len(uncached_ms):.3f}, router "
+          f"uncached {walls['uncached_router']['mean_wall_ms']:.3f}, cold "
+          f"{walls['cold']['mean_wall_ms']:.3f}, warm "
+          f"{walls['warm']['mean_wall_ms']:.3f}; bytes per batch up/down "
+          f"cold {walls['cold']['bytes_up_per_batch']:.0f}/"
+          f"{walls['cold']['bytes_down_per_batch']:.0f} warm "
+          f"{walls['warm']['bytes_up_per_batch']:.0f}/"
+          f"{walls['warm']['bytes_down_per_batch']:.0f}; shifted reads "
+          f"hit rate {walls['shifted']['hit_rate']:.4f}; 2 replicas (one "
+          f"base, {peak} B above the resident indexes at peak), merged "
+          f"cache {json.dumps(two_rep)}; held-out files "
+          f"found {found_before}/{HELD_OUT} before the swap, {found_after}/"
+          f"{HELD_OUT} after (swap {swap_ms:.3f} ms under traffic, "
+          f"invalidations {swapped['invalidations']}, versions monotone, "
+          f"runners unchanged); launches {json.dumps(launches)}")
+    print("phase 7a batch walls: " + json.dumps(walls, sort_keys=True))
+    print("phase 7a requests a second, all 2048 reads submitted at once: "
+          + json.dumps({k: round(v, 4) for k, v in rates.items()}))
+    return launches, base
+
+
+def held_out_writes(archive, cfg) -> list:
+    """The held-out files' windows, as ``build_archive`` cuts them, in
+    ``INSERT_BATCH``-read write batches of (reads, file ids)."""
+    from repro_torch.data import genome
+
+    reads, fids = [], []
+    for f in archive[-HELD_OUT:]:
+        win = genome.window_reads(f.genome, cfg.read_len, cfg.k)
+        reads.extend(win)
+        fids.extend([f.file_id] * len(win))
+    return [(np.stack(reads[i:i + INSERT_BATCH]),
+             np.asarray(fids[i:i + INSERT_BATCH], dtype=np.int32))
+            for i in range(0, len(reads), INSERT_BATCH)]
+
+
+def live_phase(cfg, archive, base, full_eng, dev) -> dict:
+    """Phase 7b: ``LiveReplicaRouter`` (2 replicas) over phase 7a's base;
+    the held-out files written through ``router.insert`` while queries
+    flow, a ``Compactor`` compaction under traffic; every answer between
+    the base's and the union's, equal to the union's once its watermark
+    holds every write, and after the compaction. Returns the launch
+    counts."""
+    from repro_torch.serving import (Compactor, GeneSearchService,
+                                     LiveReplicaRouter, RouterConfig,
+                                     SchedulerConfig, ServiceConfig)
+
+    svc_cfg = ServiceConfig(theta=1.0, max_batch=SERVE_BATCH,
+                            backend="idl_probe")
+    traffic = serve_traffic(archive, cfg)[:2]
+    held = [(f.file_id, f.reads(cfg.read_len, 1)[0])
+            for f in archive[-HELD_OUT:]]
+    queries = [read for batch in traffic for _, read in batch] + \
+        [read for _, read in held]
+    lower = uncounted(lambda: direct_answers(
+        GeneSearchService(base, svc_cfg), queries))
+    upper = uncounted(lambda: direct_answers(
+        GeneSearchService(full_eng, svc_cfg), queries))
+    writes = held_out_writes(archive, cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    h0 = stage_hists()
+    rt = LiveReplicaRouter(base, svc_cfg, RouterConfig(
+        n_replicas=2, scheduler=SchedulerConfig(max_delay_ms=TIER_DELAY_MS)))
+    compact_s = []
+    orig_compact = rt.compact
+
+    def timed_compact(**kw):
+        t0 = time.perf_counter()
+        out = orig_compact(**kw)
+        compact_s.append(time.perf_counter() - t0)
+        return out
+
+    rt.compact = timed_compact
+    n_writes = len(writes)
+    rounds = []                     # (results, label)
+    ack_ms = []
+    try:
+        lives = [r.service.live for r in rt._replicas]
+        check(lives[0].base.words[0].data_ptr() ==
+              lives[1].base.words[0].data_ptr() == base.words.data_ptr(),
+              "the live replicas share the base")
+        rounds.append(("before", resolve([rt.submit(q) for q in queries])))
+        pending = []
+        for reads, fids in writes:
+            t0 = time.perf_counter()
+            acks = rt.insert(reads, fids)
+            done = []
+            for f in acks:
+                f.add_done_callback(
+                    lambda _, t0=t0, done=done: done.append(
+                        time.perf_counter() - t0))
+            pending.append((acks, done))
+            rounds.append(("writing", [rt.submit(q) for q in queries]))
+        for acks, done in pending:
+            resolve(acks)
+            ack_ms.append(1e3 * max(done))
+        rounds = [(label, res if label == "before" else resolve(res))
+                  for label, res in rounds]
+        rounds.append(("acked", resolve([rt.submit(q) for q in queries])))
+        compactor = Compactor(rt, interval_s=0.05, min_delta_batches=n_writes)
+        during = 0
+        deadline = time.perf_counter() + WAIT_S
+        while compactor.compactions == 0 and time.perf_counter() < deadline:
+            rounds.append(("compacting",
+                           resolve([rt.submit(q) for q in queries])))
+            during += 1
+        compactions = compactor.close()
+        check(compactions == 1, "the Compactor compacted once mid-traffic")
+        rounds.append(("compacted", resolve([rt.submit(q) for q in queries])))
+        check(all(r.service.live.base.words[0].data_ptr() ==
+                  rt._replicas[0].service.live.base.words[0].data_ptr()
+                  for r in rt._replicas), "one merged base for 2 replicas")
+        live_walls = [s.wall_ms for s in rt.cluster_stats()]
+    finally:
+        rt.close()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    stages = stage_delta(h0, stage_hists())
+    exact = 0
+    for label, results in rounds:
+        for res, lo, hi in zip(results, lower, upper):
+            if label == "before":
+                ok = np.array_equal(res.matches, lo) and res.delta_seq == 0
+            elif res.delta_seq == n_writes or res.version >= 1:
+                ok = np.array_equal(res.matches, hi)
+                exact += 1
+            else:      # mid-write: the base's bits and at most the union's
+                ok = (not (lo & ~res.matches).any()
+                      and not (res.matches & ~hi).any())
+            check(ok, f"{label} answer within its watermark's union "
+                  f"(version {res.version}, delta_seq {res.delta_seq})")
+    after = rounds[-1][1]
+    check({(r.version, r.delta_seq) for r in after} == {(1, n_writes)},
+          "after the compaction: version 1, every write folded")
+    recall = [sum(bool(r.matches[f]) for (f, _), r in
+                  zip(held, results[-HELD_OUT:])) for _, results in rounds]
+    check(recall[0] == 0 and recall[-1] == HELD_OUT and all(
+        n == HELD_OUT for (label, _), n in zip(rounds, recall)
+        if label in ("acked", "compacting", "compacted")),
+        f"held-out recall 0 before the writes, total after ({recall})")
+    launches = read_launches()
+    check(launches["insert_planned"] == 2 * n_writes,
+          "insert_planned launched once per write batch and replica")
+    for name in ("gather_planned_rows", "window_min"):
+        check(launches[name] > 0, f"{name} launched on the live path")
+    n_answers = sum(len(res) for _, res in rounds)
+    print(f"phase 7b live index: ok — LiveReplicaRouter, 2 replicas over "
+          f"7a's base; {sum(len(r) for r, _ in writes)} reads of "
+          f"{HELD_OUT} held-out files in {n_writes} write batches under "
+          f"traffic, insert-ack ms {[round(x, 3) for x in ack_ms]}; "
+          f"{n_answers} answers, all futures resolved, each within its "
+          f"watermark ({exact} equal to the union index); a Compactor "
+          f"compaction mid-traffic ({during} query rounds while it ran) "
+          f"took {compact_s[0]:.3f} s; after it every answer == the union "
+          f"index at version 1; held-out recall per round {recall}; "
+          f"max_memory_allocated {peak} B; launches {json.dumps(launches)}")
+    print(f"phase 7b where the time goes: {len(live_walls)} query batches "
+          f"of the 2 replicas, wall ms mean "
+          f"{sum(live_walls) / len(live_walls):.3f}; host ms per call of "
+          f"each stage (a live query batch probes base and delta): "
+          + json.dumps(stages, sort_keys=True))
+    return launches
+
+
+def rambo_cache_phase(cfg, archive, eng) -> dict:
+    """Phase 7c: the membership cache over phase 6's RAMBO index (rows of
+    1,024 bools a kmer): two passes of ``SERVE_BATCHES`` x 256 reads, the
+    cached service equal to the uncached one; batch walls both ways and
+    the bytes copied each way. Returns the launch counts."""
+    from repro_torch.data import genome
+    from repro_torch.serving import (GeneSearchService, KmerCacheConfig,
+                                     ServiceConfig)
+
+    qrng = np.random.default_rng(7)
+    reads = []
+    for r in range(SERVE_BATCHES):
+        fids = qrng.integers(0, len(archive), size=SERVE_BATCH)
+        reads += [genome.extract_reads(archive[int(f)][1], cfg.read_len, 1,
+                                       seed=1000 * r + i)[0]
+                  for i, f in enumerate(fids)]
+    svc_cfg = dict(theta=1.0, max_batch=SERVE_BATCH, backend="idl_probe")
+    plain = GeneSearchService(eng, ServiceConfig(**svc_cfg))
+    cached = GeneSearchService(eng, ServiceConfig(
+        **svc_cfg, kmer_cache=KmerCacheConfig(capacity=CACHE_CAPACITY)))
+    torch.cuda.synchronize()
+    reset_launches()
+    walls = {}
+    for p in ("pass 1", "pass 2"):
+        plain_ms, cached_ms = [], []
+        want = uncounted(lambda: direct_answers(plain, reads, plain_ms))
+        before, h0 = cache_copies([cached]), stage_hists()
+        st0 = cached.cache_stats()
+        got = direct_answers(cached, reads, cached_ms)
+        after = cache_copies([cached])
+        stages = stage_delta(h0, stage_hists(), SERVE_BATCHES)
+        st1 = cached.cache_stats()
+        check(same_rows(got, want), f"RAMBO {p}: cached == uncached")
+        walls[p] = {
+            "uncached_mean_ms": sum(plain_ms) / len(plain_ms),
+            "cached_mean_ms": sum(cached_ms) / len(cached_ms),
+            "uncached_ms": [round(x, 3) for x in plain_ms],
+            "cached_ms": [round(x, 3) for x in cached_ms],
+            "bytes_up_per_batch": (after[0] - before[0]) / SERVE_BATCHES,
+            "bytes_down_per_batch": (after[1] - before[1]) / SERVE_BATCHES,
+            "hit_rate": (st1["hits"] - st0["hits"])
+            / (st1["lookups"] - st0["lookups"]),
+            "stages_ms_per_batch": stages}
+    launches = read_launches()
+    check(launches["gather_planned_bits"] > 0 and launches["window_min"] > 0,
+          "gather_planned_bits and window_min launched for the misses")
+    check(launches["gather_planned_rows"] == launches["probe_planned_bits"]
+          == 0, "RAMBO misses probe through the bit mode only")
+    print(f"phase 7c RAMBO with the cache: ok — two passes of "
+          f"{SERVE_BATCHES} x {SERVE_BATCH} reads, cached == uncached; "
+          + "; ".join(f"{p}: batch ms uncached {w['uncached_mean_ms']:.3f} "
+                      f"cached {w['cached_mean_ms']:.3f}, hit rate "
+                      f"{w['hit_rate']:.4f}, bytes per batch up "
+                      f"{w['bytes_up_per_batch']:.0f} down "
+                      f"{w['bytes_down_per_batch']:.0f}"
+                      for p, w in walls.items())
+          + f"; launches {json.dumps(launches)}")
+    print("phase 7c batch walls: " + json.dumps(walls, sort_keys=True))
+    return launches
 
 
 def main() -> None:
@@ -1580,14 +2098,22 @@ def main() -> None:
     engine_archive = log_uniform_archive(cfg.n_files, ARCHIVE_SEED)
     kernels += wide_kernels_phase(cfg, engine_archive, dev)
     torch.cuda.empty_cache()
-    paths = [main_path_phase(cfg, archive, dev)]
-    torch.cuda.empty_cache()        # phase 3's 8 GiB index is freed
+    launches, full_eng = main_path_phase(cfg, archive, dev)
+    paths = [launches]
+    launches, base = tier_phase(cfg, archive, full_eng, dev)
+    paths.append(launches)
+    paths.append(live_phase(cfg, archive, base, full_eng, dev))
+    del full_eng, base
+    torch.cuda.empty_cache()        # the 8 GiB indexes of 3, 7a, 7b freed
     paths.append(flat_path_phase(fcfg, g, dev))
     torch.cuda.empty_cache()
     paths.append(cobs_path_phase(cfg, engine_archive, dev))
     paths.append(minimizer_phase(cfg, engine_archive, dev))
     torch.cuda.empty_cache()
-    paths.append(rambo_path_phase(cfg, engine_archive, dev))
+    launches, rambo = rambo_path_phase(cfg, engine_archive, dev)
+    paths.append(launches)
+    paths.append(rambo_cache_phase(cfg, engine_archive, rambo))
+    del rambo
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

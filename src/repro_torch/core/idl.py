@@ -124,8 +124,24 @@ def idl_locations_kmer_batch(cfg: IDLConfig, kmer_arr: torch.Tensor
     return _combine(cfg, mh, kmer_arr)
 
 
+# the idl-bbf scheme's block: one 512-bit (64-byte) cache line
+BBF_BLOCK_BITS = 512
+
+
+def check_bbf_config(cfg: IDLConfig, block_bits: int = BBF_BLOCK_BITS
+                     ) -> None:
+    """Refuse an ``idl-bbf`` configuration whose L-window is narrower than
+    one block: the block is chosen among ``max(L // block_bits, 1)``, so
+    with L < block_bits a probe lands up to ``block_bits - 1 - L`` bits past
+    the window, and past m in the last window."""
+    if cfg.L < block_bits:
+        raise ValueError(
+            f"idl-bbf needs L >= block_bits ({block_bits}); got L={cfg.L}")
+
+
 def idl_bbf_locations_rolling(cfg: IDLConfig, codes: torch.Tensor,
-                              block_bits: int = 512) -> torch.Tensor:
+                              block_bits: int = BBF_BLOCK_BITS
+                              ) -> torch.Tensor:
     """IDL × Blocked-Bloom-filter composition (paper §3.3): the MinHash
     anchor of repetition 0 picks the L-window, a per-key hash picks one
     ``block_bits`` block inside it, and all η probes land in that block."""

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing, idl as idl_mod
-from repro_torch.index import ingest, packed, query
+from repro_torch.index import ingest, packed, query, registry
 from repro_torch.index import state as state_mod
 
 
@@ -85,6 +85,7 @@ class PackedBloomIndex(_StateView):
     @classmethod
     def build(cls, cfg: idl_mod.IDLConfig, scheme: str = "idl",
               device="cuda") -> "PackedBloomIndex":
+        registry.check_config(cfg, scheme)
         return cls(cfg=cfg, scheme=scheme, words=torch.zeros(
             (cfg.m // 32,), dtype=torch.int32, device=device))
 
@@ -196,6 +197,7 @@ class CobsIndex(_StateView):
         file (and at least ``2·η·L``), rounded up to 4096 rows."""
         if len(file_sizes) == 0:
             raise ValueError("CobsIndex.build needs at least one file")
+        registry.check_config(base_cfg, scheme)
         order = np.argsort(file_sizes)
         groups = []
         for chunk in np.array_split(order, n_groups):
@@ -321,6 +323,7 @@ class RamboIndex(_StateView):
     def build(cls, n_files: int, cfg: idl_mod.IDLConfig, scheme: str = "idl",
               B: Optional[int] = None, R: Optional[int] = None,
               device="cuda") -> "RamboIndex":
+        registry.check_config(cfg, scheme)
         B, R = rambo_dimensions(n_files, B, R)
         return cls(cfg=cfg, scheme=scheme, n_files=n_files, n_buckets=B,
                    n_rep=R, words=torch.zeros((R * B, cfg.m // 32),
@@ -424,6 +427,7 @@ class BitSlicedIndex(_StateView):
     @classmethod
     def build(cls, cfg: idl_mod.IDLConfig, scheme: str = "idl",
               n_files: int = 1024, device="cuda") -> "BitSlicedIndex":
+        registry.check_config(cfg, scheme)
         w = -(-n_files // 32)
         return cls(cfg=cfg, scheme=scheme, n_files=n_files,
                    words=torch.zeros((cfg.m, w), dtype=torch.int32,

@@ -36,6 +36,9 @@ class HashScheme:
     kmer_batch: Optional[LocationFn] = None
     rolling32: Optional[LocationFn] = None
     doc: str = ""
+    # raises ValueError for a configuration the scheme cannot hash into
+    # range (None: every IDLConfig is valid)
+    check: Optional[Callable[[idl_mod.IDLConfig], None]] = None
 
 
 _REGISTRY: dict[str, HashScheme] = {}
@@ -58,6 +61,16 @@ def get(name: str) -> HashScheme:
 
 def names() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def check_config(cfg: idl_mod.IDLConfig, scheme: str) -> None:
+    """Raise ``ValueError`` unless ``scheme`` can hash ``cfg`` into range:
+    every engine's ``build`` and every :class:`~repro_torch.index.state
+    .StateMeta` (snapshot loads, engine views) pass through here, before any
+    words are allocated or probed."""
+    check = get(scheme).check
+    if check is not None:
+        check(cfg)
 
 
 def locations(cfg: idl_mod.IDLConfig, codes: torch.Tensor, scheme: str
@@ -109,5 +122,6 @@ register(HashScheme(
 register(HashScheme(
     name="idl-bbf",
     rolling=idl_mod.idl_bbf_locations_rolling,
+    check=idl_mod.check_bbf_config,
     doc="IDL × Blocked-Bloom composition (§3.3): window + one cache line.",
 ))

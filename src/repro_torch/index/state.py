@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import idl as idl_mod
+from repro_torch.index import registry
 
 
 class StaleIndexError(RuntimeError):
@@ -68,6 +69,8 @@ class StateMeta:
             raise ValueError(
                 f"unknown engine kind {self.engine!r} (want one of {ENGINES})"
             )
+        for cfg in self.cfgs:
+            registry.check_config(cfg, self.scheme)
 
 
 @dataclasses.dataclass(frozen=True)

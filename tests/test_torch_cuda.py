@@ -510,3 +510,115 @@ def test_cobs_rambo_msmt_on_cuda(cuda, kind):
         assert not bool(got[6, 6])
         eng = engs["planned"].insert_batch(genomes[6:], [6])
         assert bool(eng.msmt(reads[6:7])[0, 6])
+
+
+# -- the serving tier on the card ---------------------------------------------
+
+def _tier_reads():
+    rng = np.random.default_rng(21)
+    genomes = rng.integers(0, 4, size=(6, 400), dtype=np.uint8)
+    queries = [genomes[i % 6, s:s + n] for i, (s, n) in enumerate(
+        [(10, 230), (40, 120), (90, 77), (0, 230), (200, 61), (150, 199),
+         (5, 230), (60, 100)])]
+    queries += list(rng.integers(0, 4, size=(2, 150), dtype=np.uint8))
+    return genomes, queries
+
+
+def _tier_engine(kind, device, genomes):
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 10, eta=3, m=1 << 20)
+    if kind == "rambo":
+        eng = engines.RamboIndex.build(7, cfg, B=5, R=2, device=device)
+    else:
+        eng = engines.BitSlicedIndex.build(cfg, "idl", 40, device=device)
+    return eng.insert_batch(genomes[:4], np.asarray([0, 3, 5, 6]))
+
+
+def _tier_rows(results):
+    return [r.matches for r in results]
+
+
+@pytest.mark.parametrize("kind", ["bitsliced", "rambo"])
+def test_cached_service_on_cuda(cuda, kind):
+    """The membership cache over a CUDA index: its misses are probed by
+    the kernels (the dedup path), two passes equal the plain ``"torch"``
+    backend, and the warm pass is all hits."""
+    from repro_torch.serving import (GeneSearchService, KmerCacheConfig,
+                                     ServiceConfig)
+
+    genomes, queries = _tier_reads()
+    eng = _tier_engine(kind, cuda, genomes)
+    plain = GeneSearchService(eng, ServiceConfig(backend="torch",
+                                                 max_batch=4))
+    cached = GeneSearchService(eng, ServiceConfig(
+        backend="idl_probe", max_batch=4,
+        kmer_cache=KmerCacheConfig(1 << 14)))
+    counter = "launches" if kind == "bitsliced" else "bit_mode_launches"
+    before = getattr(probe_kernel, counter)
+    want = _tier_rows(plain.search(queries))
+    cold = _tier_rows(cached.search(queries))
+    assert getattr(probe_kernel, counter) > before
+    s1 = cached.cache_stats()
+    warm = _tier_rows(cached.search(queries))
+    s2 = cached.cache_stats()
+    for a, b, c in zip(want, cold, warm):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    # pass two: every lookup hits, nothing more is probed
+    assert s2["lookups"] - s1["lookups"] == s2["hits"] - s1["hits"] > 0
+    assert s2["misses"] == s1["misses"]
+
+
+def test_two_replica_router_on_cuda(cuda):
+    """Two replicas on one card share the index's tensors and answer like
+    the plain backend."""
+    from repro_torch.serving import (GeneSearchService, ReplicaRouter,
+                                     RouterConfig, ServiceConfig)
+
+    genomes, queries = _tier_reads()
+    eng = _tier_engine("bitsliced", cuda, genomes)
+    want = _tier_rows(GeneSearchService(eng, ServiceConfig(
+        backend="torch", max_batch=4)).search(queries))
+    with ReplicaRouter(eng, ServiceConfig(max_batch=4),
+                       RouterConfig(n_replicas=2,
+                                    policy="round_robin")) as rt:
+        assert all(r.service.state.words[0] is eng.words
+                   for r in rt._replicas)
+        futures = [rt.submit(q) for q in queries * 2]
+        got = _tier_rows(f.result(timeout=60) for f in futures)
+        for a, b in zip(want * 2, got):
+            np.testing.assert_array_equal(a, b)
+        assert {s.replica for s in rt.cluster_stats()} == {0, 1}
+
+
+def test_live_router_insert_and_compaction_on_cuda(cuda):
+    """A live router on the card: a fanned write becomes visible on both
+    replicas, a compaction publishes one merged base to both, and every
+    answer equals the plain backend over a union index."""
+    from repro_torch.serving import (GeneSearchService, LiveReplicaRouter,
+                                     RouterConfig, ServiceConfig)
+
+    genomes, queries = _tier_reads()
+    base = _tier_engine("bitsliced", cuda, genomes)
+    union = base.insert_batch(genomes[4:6], np.asarray([20, 39]),
+                              donate=False)
+    want = _tier_rows(GeneSearchService(union, ServiceConfig(
+        backend="torch", max_batch=4)).search(queries))
+    base_words = base.words.clone()
+    with LiveReplicaRouter(base, ServiceConfig(max_batch=4),
+                           RouterConfig(n_replicas=2,
+                                        policy="round_robin")) as rt:
+        before = ins_kernel.launches
+        acks = [f.result(timeout=60) for f in
+                rt.insert(genomes[4:6], np.asarray([20, 39]))]
+        assert {a.delta_seq for a in acks} == {1}
+        assert ins_kernel.launches == before + 2     # one per replica
+        for phase in ("delta", "compacted"):
+            got = _tier_rows(f.result(timeout=60) for f in
+                             [rt.submit(q) for q in queries * 2])
+            for a, b in zip(want * 2, got):
+                np.testing.assert_array_equal(a, b)
+            if phase == "delta":
+                assert rt.compact() == 1
+        lives = [r.service.live for r in rt._replicas]
+        assert lives[0].base is lives[1].base
+        assert torch.equal(base.words, base_words)   # never written
