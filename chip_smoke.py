@@ -79,10 +79,41 @@ reference package) and runs these phases, printing one line each:
    bucket)``: B 32, R 10, (320, 2^20) int32 words), its last file held out
    of the build and inserted after a query that must miss it (a query
    after the insert must find it), then served and checked as in phase 5,
-   one ``gather_planned_bits`` launch per query.
+   one ``gather_planned_bits`` launch per query;
+7. the serving tier over phase 3's configuration: 7a a base of files
+   0-1015 through the membership cache and ``ReplicaRouter`` (1 and 2
+   replicas, a hot swap to phase 3's index), 7b ``LiveReplicaRouter``
+   writes of the 8 held-out files and a compaction under traffic, 7c the
+   cache over phase 6's RAMBO index;
+8. the process fabric, from a gateway process of its own (``chip_smoke.py
+   --fabric-gateway DIR``) that must never initialise CUDA: 7a's base saved
+   as an 8 GiB snapshot, 2 worker processes each loading it onto the card
+   (answers == the base's direct service), the held-out files written
+   through ``insert`` (0/8 -> 8/8), a kill -9 of a worker and a
+   compaction with its rolling restart under traffic (every future
+   resolved, answers == phase 3's index), requests a second on 2 workers
+   and then on 1, and each worker's ``query.locations`` time, peak device
+   memory and kernel launches from its ``stats`` reply;
+9. sharded archives: 9a ``build_sharded_archive`` of phase 3's archive into
+   4 file shards, equal to phase 3's index word for word, saved as a shard
+   set and served through ``ScatterGatherRouter`` in this process and with
+   a process per shard (== the unsharded service), a killed shard process
+   named in ``missing_files``, and the ``"sharded"`` service backend on
+   the one-card mesh == ``"idl_probe"``; 9b phase 6's RAMBO index in 2
+   word shards (``sharded_msmt`` and both routers == the unsharded index; a
+   killed shard process fails every affected future with
+   ``ShardDeadError``).
+
+The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
+index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
+6, 7c, 9b. Phases 8 and 9 print their temp root's free
+bytes before they save (8 and 9a write 8 GiB snapshots; too little room
+fails the run) and remove their snapshots, and print their wall seconds.
 
 Every path phase zeroes the launch counters just before it and reads them
-just after; each kernel the path runs must have launched. Then it prints
+just after; each kernel the path runs must have launched (phases 8 and 9
+add the launch counters of their worker and shard processes, read from
+each one's ``stats`` reply). Then it prints
 the kernels' JSON line (launches summed over the path phases), the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. It exits non-zero, printing no result, without a CUDA device,
@@ -536,7 +567,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {name: getattr(mod, attr) for name, mod, attr in _counters()}
+    from repro_torch import kernels
+
+    return kernels.launch_counts()
 
 
 @contextlib.contextmanager
@@ -2072,7 +2105,552 @@ def rambo_cache_phase(cfg, archive, eng) -> dict:
     return launches
 
 
+# -- phases 8, 9a and 9b: the process fabric and sharded archives -------------
+
+SNAPSHOT_ROOM = 9 << 30         # bytes of disk one full-width snapshot needs
+FABRIC_WORKERS = 2
+SHARDS = 4                      # phase 9a's file shards (256 files each)
+RAMBO_SHARDS = 2                # phase 9b's word shards
+GATEWAY_TIMEOUT_S = 900         # the phase-8 gateway process's time limit
+
+
+def scratch_dir(tag: str, need: int) -> str:
+    """A fresh directory under the temp root for a phase's snapshots,
+    after printing the root's free bytes; fails the run when fewer than
+    ``need`` bytes are free."""
+    import shutil
+    import tempfile
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    print(f"phase {tag} temp root {root}: {free} bytes free, {need} needed "
+          f"for its snapshots")
+    check(free >= need, f"room for phase {tag}'s snapshots in {root} "
+          f"({free} bytes free, {need} needed)")
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=root)
+
+
+def remove_dir(path: str) -> None:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for name, n in more.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def query_locations_ms(stats: dict) -> dict:
+    """Mean host ms per call of a worker's ``query.locations`` stage and
+    its call count, from the obs snapshot of its ``stats`` reply."""
+    from repro_torch.obs import metrics as obs_metrics
+
+    hists = stats["obs"]["metrics"]["hists"].get("planner.stage_ms", {})
+    for key, h in hists.items():
+        labels = obs_metrics.parse_label_key(key)
+        if (labels["op"], labels["stage"]) == ("query", "locations"):
+            return {"mean_ms": h["sum"] / h["count"], "calls": h["count"]}
+    return {"mean_ms": None, "calls": 0}
+
+
+def shards_phase(cfg, archive, full_eng, dev) -> dict:
+    """Phase 9a: ``build_sharded_archive`` of phase 3's archive into
+    ``SHARDS`` file shards (one thread each) equal to phase 3's index word
+    for word (``join_states``); the shard set saved and served through
+    ``ScatterGatherRouter`` in this process and with ``procs=True`` (a
+    process per shard), both equal to the unsharded service; a killed
+    shard process named in ``missing_files``; the ``"sharded"`` service
+    backend on the one-card mesh equal to ``"idl_probe"``. Returns the
+    launch counts (this process's and the shard processes')."""
+    from repro_torch.index import BitSlicedIndex, build_sharded_archive, \
+        shards
+    from repro_torch.index import query
+    from repro_torch.serving import (GeneSearchService, ScatterConfig,
+                                     ScatterGatherRouter, SchedulerConfig,
+                                     ServiceConfig)
+
+    t_phase = time.perf_counter()
+    svc_cfg = ServiceConfig(theta=1.0, max_batch=SERVE_BATCH,
+                            backend="idl_probe")
+    traffic = serve_traffic(archive, cfg)
+    flat = [read for batch in traffic for _, read in batch]
+    want = uncounted(lambda: direct_answers(
+        GeneSearchService(full_eng, svc_cfg), flat))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    spec, states = build_sharded_archive(
+        BitSlicedIndex.build(cfg.idl_config(), cfg.scheme, cfg.n_files,
+                             device=dev),
+        archive, n_shards=SHARDS, read_len=cfg.read_len,
+        chunk_reads=INSERT_BATCH, backend="idl_insert")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(spec.axis == "files" and spec.n_shards == SHARDS,
+          f"{SHARDS} file shards")
+    joined = shards.join_states(spec, states)
+    check(torch.equal(joined.words[0], full_eng.words),
+          "the sharded build == phase 3's index word for word")
+    del joined
+    torch.cuda.empty_cache()
+    work = scratch_dir("9a", SNAPSHOT_ROOM)
+    try:
+        t0 = time.perf_counter()
+        set_dir = shards.save_shard_set(spec, states, f"{work}/set")
+        save_s = time.perf_counter() - t0
+        del states
+        torch.cuda.empty_cache()
+        sched = SchedulerConfig(max_delay_ms=TIER_DELAY_MS)
+        rates, boot_s = {}, {}
+        t0 = time.perf_counter()
+        with ScatterGatherRouter(set_dir, ScatterConfig(
+                service=svc_cfg, scheduler=sched, device="cuda")) as rt:
+            boot_s["in-process"] = time.perf_counter() - t0
+            rates["in-process"] = pipelined_rate(rt, flat, want)
+        torch.cuda.empty_cache()
+        lost = shards.shard_files(spec, 1)
+        kept = np.asarray(sorted(set(range(cfg.n_files)) - set(lost)))
+        t0 = time.perf_counter()
+        rt = ScatterGatherRouter(set_dir, ScatterConfig(
+            procs=True, service=svc_cfg, scheduler=sched, device="cuda"))
+        try:
+            boot_s["procs"] = time.perf_counter() - t0
+            rates["procs"] = pipelined_rate(rt, flat, want)
+            stats = rt.stats()
+            check(len(stats) == SHARDS, "every shard process answered stats")
+            shard_launches = {}
+            for s in stats.values():
+                add_launches(shard_launches, s["device"]["launches"])
+            mems = {sid: s["device"]["max_memory_allocated"]
+                    for sid, s in sorted(stats.items())}
+            futures = [rt.submit(read) for read in flat]
+            rt.kill_shard(1)
+            results = resolve(futures)
+            named = 0
+            for res, row in zip(results, want):
+                if res.missing_files:
+                    check(res.missing_files == lost
+                          and not res.matches[list(lost)].any(),
+                          "a dead shard's files named missing and False")
+                    named += 1
+                check(np.array_equal(res.matches[kept], row[kept]),
+                      "the live shards' files == the unsharded service")
+            deadline = time.perf_counter() + 60
+            while len(rt.live_shards()) == SHARDS and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.05)
+            late = resolve([rt.submit(read) for read in flat[:SERVE_BATCH]])
+            check(all(r.missing_files == lost for r in late),
+                  "after the kill every answer names the dead shard's "
+                  f"{len(lost)} files")
+            check(all(np.array_equal(r.matches[kept], row[kept])
+                      for r, row in zip(late, want)),
+                  "after the kill the live shards still answer exactly")
+        finally:
+            rt.close()
+    finally:
+        remove_dir(work)
+    sharded = GeneSearchService(full_eng, ServiceConfig(
+        theta=1.0, max_batch=SERVE_BATCH, backend="sharded"))
+    check(query.default_mesh(dev) == (torch.device("cuda", 0),)
+          and same_rows(direct_answers(sharded, flat[:SERVE_BATCH]),
+                        want[:SERVE_BATCH]),
+          "the sharded backend on the one-card mesh == idl_probe")
+    launches = add_launches(read_launches(), shard_launches)
+    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+        check(launches[name] > 0, f"{name} launched on the sharded path")
+    check(shard_launches["gather_planned_rows"] > 0
+          and shard_launches["window_min"] > 0,
+          "every shard process launched the gather and window_min")
+    print(f"phase 9a sharded archives: ok — build_sharded_archive into "
+          f"{SHARDS} file shards ((m, {spec.bounds[1]}) int32 each, one "
+          f"thread a shard) in "
+          f"{build_s:.3f} s, joined == phase 3's index word for word; shard "
+          f"set saved in {save_s:.3f} s; {len(flat)} reads through the "
+          f"scatter router in process and with a process per shard, both "
+          f"== the unsharded service; boot s "
+          f"{json.dumps(boot_s)}; requests a second, all reads in flight, "
+          f"{json.dumps(rates)}; shard processes' peak device memory "
+          f"{json.dumps(mems)} B; kill -9 of shard 1 mid-stream: every "
+          f"future resolved, {named} of {len(flat)} in flight named its "
+          f"{len(lost)} files missing, every later answer names them; "
+          f"sharded backend on the one-card mesh == idl_probe; shard "
+          f"processes' launches {json.dumps(shard_launches)}; launches "
+          f"{json.dumps(launches)}; wall {time.perf_counter() - t_phase:.3f}"
+          f" s")
+    return launches
+
+
+def fabric_inputs(cfg, archive, base, full_eng) -> str:
+    """Phase 8's set-up in this process, while the indexes live: the base
+    (7a's, files 0-1015) saved as the fleet's snapshot, and the oracle
+    answers of the base and of the union (phase 3's index), kept as numpy
+    beside the traffic, the held-out reads and the write batches in
+    ``inputs.pkl`` of a scratch directory. Returns the directory."""
+    import pickle
+
+    from repro_torch.index import store
+    from repro_torch.serving import (GeneSearchService, LiveReplicaRouter,
+                                     RouterConfig, SchedulerConfig,
+                                     ServiceConfig)
+
+    svc_cfg = ServiceConfig(theta=1.0, max_batch=SERVE_BATCH,
+                            backend="idl_probe")
+    traffic = serve_traffic(archive, cfg)
+    held = [(f.file_id, f.reads(cfg.read_len, 1)[0])
+            for f in archive[-HELD_OUT:]]
+    flat = [read for batch in traffic for _, read in batch]
+    queries = flat + [read for _, read in held]
+    lower = uncounted(lambda: direct_answers(
+        GeneSearchService(base, svc_cfg), queries))
+    upper = uncounted(lambda: direct_answers(
+        GeneSearchService(full_eng, svc_cfg), queries))
+
+    # the fabric's in-process counterpart: one live replica over the same
+    # base (two hashings a batch, as in a worker), on this interpreter
+    def live_baseline():
+        with LiveReplicaRouter(base, svc_cfg, RouterConfig(
+                n_replicas=1, scheduler=SchedulerConfig(
+                    max_delay_ms=TIER_DELAY_MS))) as rt:
+            h0 = stage_hists()
+            rates = [pipelined_rate(rt, flat, lower[:-HELD_OUT])
+                     for _ in range(2)]
+            return rates, stage_delta(h0, stage_hists())["query.locations"]
+
+    rates, locations = uncounted(live_baseline)
+    torch.cuda.empty_cache()
+    print(f"phase 8 in-process counterpart: one LiveReplicaRouter replica "
+          f"over the base, requests a second with all {len(flat)} reads in "
+          f"flight {json.dumps(rates)}, query.locations host ms per call "
+          f"{json.dumps(locations)}")
+    work = scratch_dir("8", 2 * SNAPSHOT_ROOM)
+    try:
+        t0 = time.perf_counter()
+        store.save(base, f"{work}/base")
+        save_s = time.perf_counter() - t0
+        with open(f"{work}/inputs.pkl", "wb") as f:
+            pickle.dump({"queries": queries,
+                         "held": [fid for fid, _ in held],
+                         "writes": held_out_writes(archive, cfg),
+                         "lower": np.stack(lower), "upper": np.stack(upper),
+                         "save_s": save_s,
+                         "device": str(base.words.device)},
+                        f, protocol=pickle.HIGHEST_PROTOCOL)
+    except BaseException:
+        remove_dir(work)
+        raise
+    return work
+
+
+def fabric_phase(work: str) -> dict:
+    """Phase 8: the process fabric, driven from a gateway process of its
+    own (``chip_smoke.py --fabric-gateway DIR``, which never touches
+    CUDA), in its own session so that nothing it starts outlives it.
+    Prints its lines and returns the launch counts summed over its
+    workers."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--fabric-gateway",
+         work], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=GATEWAY_TIMEOUT_S)
+    finally:
+        if proc.poll() is None or proc.returncode:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        remove_dir(work)
+    sys.stdout.write(out)
+    check(proc.returncode == 0, f"the phase-8 gateway exited "
+          f"{proc.returncode}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])["launches"]
+
+
+def fabric_gateway(work: str) -> None:
+    """The phase-8 gateway process: a ``ProcessFabric`` of
+    ``FABRIC_WORKERS`` workers over the saved base, each loading it onto
+    the card. Serves the traffic (== the base's direct service), writes
+    the held-out files (0/8 -> 8/8, every answer within its watermark),
+    survives a kill -9 of a worker mid-stream and a compaction with a
+    rolling restart under traffic (every answer == the union index), and
+    times requests a second with every read in flight on 2 workers, then
+    on 1. Its CUDA state must stay uninitialised. Prints its lines and,
+    last, a JSON line with the launch counts summed over its workers."""
+    import os
+    import pickle
+    import shutil
+    import signal
+    import threading
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.serving import (FabricConfig, ProcessFabric,
+                                     SchedulerConfig, ServiceConfig)
+
+    t_phase = time.perf_counter()
+    with open(f"{work}/inputs.pkl", "rb") as f:
+        inp = pickle.load(f)
+    queries, lower, upper = inp["queries"], inp["lower"], inp["upper"]
+    flat = queries[:-HELD_OUT]
+    held = inp["held"]
+    writes = inp["writes"]
+    n_writes = len(writes)
+    svc_cfg = ServiceConfig(theta=1.0, max_batch=SERVE_BATCH,
+                            backend="idl_probe")
+    # eager: each snapshot's checksum pass ends before its worker serves,
+    # so no background pass overlaps the timed passes
+    fab_cfg = FabricConfig(
+        n_workers=FABRIC_WORKERS, service=svc_cfg,
+        scheduler=SchedulerConfig(max_delay_ms=TIER_DELAY_MS),
+        verify="eager", device=inp["device"])
+    seen: dict = {}                 # worker id -> its last stats reply
+
+    def gather_stats() -> None:
+        seen.update(fab.stats())
+
+    def recall(results) -> int:
+        return sum(bool(r.matches[f]) for f, r in
+                   zip(held, results[-HELD_OUT:]))
+
+    def rate(reads, want) -> float:
+        t0 = time.perf_counter()
+        got = resolve([fab.submit(read) for read in reads])
+        r = len(reads) / (time.perf_counter() - t0)
+        check(same_rows([g.matches for g in got], list(want)),
+              "pipelined fabric pass == its oracle")
+        return r
+
+    t0 = time.perf_counter()
+    fab = ProcessFabric(f"{work}/base", fab_cfg,
+                        journal_path=f"{work}/wal.idlj")
+    rates = {}
+    try:
+        boot_s = time.perf_counter() - t0
+        got = resolve([fab.submit(q) for q in queries])
+        check(same_rows([r.matches for r in got], list(lower)),
+              "2-worker fabric == the base's direct service")
+        before = recall(got)
+        check(before == 0, "held-out files found 0 of 8 on the base")
+        rates["2 workers"] = [rate(flat, lower[:-HELD_OUT])
+                              for _ in range(2)]
+        acks, ack_ms, during = [], [], []
+        for reads, fids in writes:
+            t0 = time.perf_counter()
+            fut = fab.insert(reads, fids)
+            fut.add_done_callback(lambda _, t0=t0: ack_ms.append(
+                1e3 * (time.perf_counter() - t0)))
+            acks.append(fut)
+            during.append([fab.submit(q) for q in queries])
+        check({a.delta_seq for a in resolve(acks)} ==
+              set(range(1, n_writes + 1)), "every write acked in order")
+        exact = 0
+        for batch in during:
+            for res, lo, hi in zip(resolve(batch), lower, upper):
+                if res.delta_seq == n_writes:
+                    ok = np.array_equal(res.matches, hi)
+                    exact += 1
+                else:
+                    ok = (not (lo & ~res.matches).any()
+                          and not (res.matches & ~hi).any())
+                check(ok, f"mid-write answer within its watermark "
+                      f"(delta_seq {res.delta_seq})")
+        got = resolve([fab.submit(q) for q in queries])
+        check(same_rows([r.matches for r in got], list(upper)),
+              "after every ack: fabric == the union index")
+        after = recall(got)
+        check(after == HELD_OUT, "held-out files found 8 of 8 after the "
+              "writes")
+        gather_stats()
+        # kill -9 one worker with every read in flight
+        futures = [fab.submit(q) for q in queries]
+        victim = min(fab.worker_pids())
+        os.kill(fab.worker_pids()[victim], signal.SIGKILL)
+        got = resolve(futures)
+        check(same_rows([r.matches for r in got], list(upper)),
+              "across the kill -9 every future resolved == the union")
+        deadline = time.perf_counter() + 60
+        while fab.n_workers > FABRIC_WORKERS - 1 and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        check(fab.n_workers == FABRIC_WORKERS - 1, "the fleet lost one")
+        gather_stats()
+        # compaction with a rolling restart while traffic flows
+        free = shutil.disk_usage(work).free
+        print(f"phase 8 temp root {work}: {free} bytes free before the "
+              f"compaction's save")
+        check(free >= SNAPSHOT_ROOM, "room for the merged snapshot")
+        stop, rounds = threading.Event(), []
+
+        def traffic() -> None:
+            # each round's stats keep the lead worker's last reply before
+            # it retires: its peak includes the compaction's
+            while not stop.is_set():
+                rounds.append([fab.submit(q) for q in queries])
+                resolve(rounds[-1])
+                gather_stats()
+
+        feeder = threading.Thread(target=traffic, daemon=True)
+        feeder.start()
+        t0 = time.perf_counter()
+        version = fab.compact(f"{work}/merged")
+        compact_s = time.perf_counter() - t0
+        stop.set()
+        feeder.join(timeout=WAIT_S)
+        check(version == 1 and fab.version == 1, "compaction -> version 1")
+        for batch in rounds:
+            check(same_rows([r.matches for r in resolve(batch)],
+                            list(upper)),
+                  "every answer during the compaction == the union")
+        got = resolve([fab.submit(q) for q in queries])
+        check(same_rows([r.matches for r in got], list(upper))
+              and {r.version for r in got} == {1},
+              "after the compaction: version 1 == the union index")
+        gather_stats()
+        rates["1 worker"] = [rate(flat, upper[:-HELD_OUT]) for _ in range(2)]
+        gather_stats()
+    finally:
+        fab.close()
+    check(not torch.cuda.is_initialized(),
+          "the gateway never initialised CUDA")
+    launches: dict = {}
+    for s in seen.values():
+        add_launches(launches, s["device"]["launches"])
+    check(launches["window_min"] > 0 and launches["gather_planned_rows"] > 0,
+          "the workers launched window_min and gather_planned_rows")
+    check(launches["insert_planned"] == FABRIC_WORKERS * n_writes,
+          "insert_planned launched once per write batch and worker")
+    workers = {wid: {
+        "pid": s["pid"],
+        "query_locations": query_locations_ms(s),
+        "max_memory_allocated": s["device"]["max_memory_allocated"],
+        "requests_served": s["requests_served"],
+        "launches": s["device"]["launches"]} for wid, s in sorted(
+            seen.items())}
+    print(f"phase 8 process fabric: ok — {FABRIC_WORKERS} worker processes "
+          f"over 7a's base snapshot (saved in {inp['save_s']:.3f} s), fleet "
+          f"boot {boot_s:.3f} s; {len(queries)} reads == the direct "
+          f"service; {n_writes} write batches of the {HELD_OUT} held-out "
+          f"files through fabric.insert, ack ms "
+          f"{[round(x, 3) for x in sorted(ack_ms)]}, held-out recall "
+          f"{before}/{HELD_OUT} -> {after}/{HELD_OUT}, {exact} mid-write "
+          f"answers == the union; kill -9 of worker {victim} with "
+          f"{len(queries)} reads in flight: all resolved == the union; "
+          f"compaction + rolling restart under traffic ({len(rounds)} "
+          f"rounds) in {compact_s:.3f} s, version 1 == the union; gateway "
+          f"CUDA initialised: {torch.cuda.is_initialized()}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    print(f"phase 8 requests a second, all {len(flat)} reads in flight (2 "
+          f"workers on the base, 1 worker after the compaction): "
+          + json.dumps(rates))
+    print("phase 8 workers (query.locations host ms per call, peak device "
+          "memory, launches): " + json.dumps(workers, sort_keys=True))
+    print(json.dumps({"launches": launches}))
+
+
+def rambo_traffic(archive, cfg, n_batches: int) -> list:
+    """``n_batches`` x 256 reads of phase 7c's traffic (seed 7)."""
+    from repro_torch.data import genome
+
+    qrng = np.random.default_rng(7)
+    reads = []
+    for r in range(n_batches):
+        fids = qrng.integers(0, len(archive), size=SERVE_BATCH)
+        reads += [genome.extract_reads(archive[int(f)][1], cfg.read_len, 1,
+                                       seed=1000 * r + i)[0]
+                  for i, f in enumerate(fids)]
+    return reads
+
+
+def rambo_shards_phase(cfg, archive, eng) -> dict:
+    """Phase 9b: phase 6's RAMBO index cut into ``RAMBO_SHARDS`` word
+    shards ((320, 2^19) int32 each); ``sharded_msmt`` and the scatter
+    router (in process, then a process per shard) equal to the unsharded
+    ``RamboIndex``; a kill -9 of a shard gives ``ShardDeadError`` on every
+    affected future and every later one. Returns the launch counts."""
+    from repro_torch.index import shards
+    from repro_torch.serving import (GeneSearchService, ScatterConfig,
+                                     ScatterGatherRouter, ServiceConfig,
+                                     ShardDeadError)
+
+    t_phase = time.perf_counter()
+    svc_cfg = ServiceConfig(theta=1.0, max_batch=SERVE_BATCH,
+                            backend="idl_probe")
+    reads = rambo_traffic(archive, cfg, 2)
+    want = uncounted(lambda: direct_answers(
+        GeneSearchService(eng, svc_cfg), reads))
+    torch.cuda.synchronize()
+    reset_launches()
+    spec, parts = shards.partition_state(eng, RAMBO_SHARDS)
+    check(spec.axis == "words" and all(
+        p.words[0].shape == (320, (1 << 20) // RAMBO_SHARDS) for p in parts),
+        "RAMBO word shards of (320, 2^19) int32")
+    direct = shards.sharded_msmt(spec, parts, np.stack(reads[:SERVE_BATCH]))
+    check(same_rows(list(direct.cpu().numpy()), want[:SERVE_BATCH]),
+          "sharded_msmt == the unsharded RamboIndex")
+    work = scratch_dir("9b", 2 << 30)
+    try:
+        set_dir = shards.save_shard_set(spec, parts, f"{work}/set")
+        del parts
+        torch.cuda.empty_cache()
+        rates = {}
+        with ScatterGatherRouter(set_dir, ScatterConfig(
+                service=svc_cfg, device="cuda")) as rt:
+            rates["in-process"] = pipelined_rate(rt, reads, want)
+        rt = ScatterGatherRouter(set_dir, ScatterConfig(
+            procs=True, service=svc_cfg, device="cuda"))
+        try:
+            rates["procs"] = pipelined_rate(rt, reads, want)
+            shard_launches = {}
+            for s in rt.stats().values():
+                add_launches(shard_launches, s["device"]["launches"])
+            futures = [rt.submit(read) for read in reads]
+            rt.kill_shard(0)
+            ok = dead = 0
+            for f, row in zip(futures, want):
+                try:
+                    res = f.result(timeout=WAIT_S)
+                    check(np.array_equal(res.matches, row),
+                          "an answer before the kill == the unsharded index")
+                    ok += 1
+                except ShardDeadError:
+                    dead += 1
+            check(ok + dead == len(futures), "zero dropped futures")
+            late = [rt.submit(read) for read in reads[:SERVE_BATCH]]
+            for f in late:
+                try:
+                    f.result(timeout=WAIT_S)
+                    check(False, "an answer after the kill failed loud")
+                except ShardDeadError:
+                    pass
+        finally:
+            rt.close()
+    finally:
+        remove_dir(work)
+    launches = add_launches(read_launches(), shard_launches)
+    check(launches["window_min"] > 0 and shard_launches["window_min"] > 0,
+          "window_min launched by the word shards' hashing")
+    check(launches["gather_planned_bits"] == launches["gather_planned_rows"]
+          == 0, "the word shards' partials are plain gathers")
+    print(f"phase 9b sharded RAMBO: ok — {RAMBO_SHARDS} word shards of "
+          f"(320, 2^19) int32; sharded_msmt and the scatter router (in "
+          f"process and a process per shard) == the unsharded RamboIndex on "
+          f"{len(reads)} reads; requests a second {json.dumps(rates)}; kill "
+          f"-9 of shard 0 with {len(futures)} in flight: {ok} answered "
+          f"before it, {dead} ShardDeadError, every later future "
+          f"ShardDeadError; shard processes' launches "
+          f"{json.dumps(shard_launches)}; launches {json.dumps(launches)}; "
+          f"wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--fabric-gateway"]:
+        fabric_gateway(sys.argv[2])     # phase 8's gateway process
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False); this script runs only on a GPU")
@@ -2103,8 +2681,13 @@ def main() -> None:
     launches, base = tier_phase(cfg, archive, full_eng, dev)
     paths.append(launches)
     paths.append(live_phase(cfg, archive, base, full_eng, dev))
+    # 9a needs phase 3's index; 8 needs the card clear of this process's
+    # indexes (each worker holds its own base and delta), so 9a goes first
+    paths.append(shards_phase(cfg, archive, full_eng, dev))
+    work = fabric_inputs(cfg, archive, base, full_eng)
     del full_eng, base
     torch.cuda.empty_cache()        # the 8 GiB indexes of 3, 7a, 7b freed
+    paths.append(fabric_phase(work))
     paths.append(flat_path_phase(fcfg, g, dev))
     torch.cuda.empty_cache()
     paths.append(cobs_path_phase(cfg, engine_archive, dev))
@@ -2113,6 +2696,7 @@ def main() -> None:
     launches, rambo = rambo_path_phase(cfg, engine_archive, dev)
     paths.append(launches)
     paths.append(rambo_cache_phase(cfg, engine_archive, rambo))
+    paths.append(rambo_shards_phase(cfg, engine_archive, rambo))
     del rambo
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)

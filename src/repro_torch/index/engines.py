@@ -15,7 +15,8 @@ BitSlicedIndex         one bit-sliced matrix, 32-bit lane path:
 Inserts go through :mod:`repro_torch.index.ingest` (default backend
 ``"idl_insert"``; ``window_min`` sub-samples minimizers), queries through
 :mod:`repro_torch.index.query` (default backend ``"idl_probe"``;
-``dedup=True`` probes each distinct kmer once). Inserts update the words in
+``dedup=True`` probes each distinct kmer once); ``mesh`` is the
+``"sharded"`` backends' tuple of devices. Inserts update the words in
 place; the input value is marked consumed (``donate=False`` inserts into a
 copy). Every engine is a view over an :class:`IndexState` (``.state``,
 ``.with_state``).
@@ -95,7 +96,8 @@ class PackedBloomIndex(_StateView):
 
     def insert_batch(self, reads, file_ids=None, *,
                      backend: str = "idl_insert", donate: bool = True,
-                     window_min: Optional[int] = None) -> "PackedBloomIndex":
+                     window_min: Optional[int] = None,
+                     mesh=None) -> "PackedBloomIndex":
         """Index a (B, read_len) batch (``file_ids`` is ignored: one set),
         in place; returns the updated view and marks this one consumed
         (unless ``donate=False``, which inserts into a copy)."""
@@ -106,13 +108,13 @@ class PackedBloomIndex(_StateView):
             self.cfg, self.scheme, tuple(reads.shape), self._shape,
             kind="bits", window_min=window_min, device=self.words.device)
         words = plan.execute(self.words, reads, backend=backend,
-                             donate=donate)
+                             donate=donate, mesh=mesh)
         if donate:
             state_mod.mark_consumed(self)
         return dataclasses.replace(self, words=words)
 
     def query_batch(self, reads, *, backend: str = "idl_probe",
-                    dedup: bool = False) -> torch.Tensor:
+                    dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers) bool per-kmer membership."""
         state_mod.ensure_live(self, what="engine")
         reads = query.as_reads(reads, self.words.device)
@@ -120,7 +122,7 @@ class PackedBloomIndex(_StateView):
             self.cfg, self.scheme, tuple(reads.shape), self._shape,
             bit_probe=True, device=self.words.device)
         return plan.execute(self.words, reads, backend=backend,
-                            dedup=dedup)[..., 0] == 1
+                            dedup=dedup, mesh=mesh)[..., 0] == 1
 
     def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
         """(B,) bool: kmer coverage of the one indexed set >= theta."""
@@ -226,7 +228,8 @@ class CobsIndex(_StateView):
 
     def insert_batch(self, reads, file_ids=None, *,
                      backend: str = "idl_insert", donate: bool = True,
-                     window_min: Optional[int] = None) -> "CobsIndex":
+                     window_min: Optional[int] = None,
+                     mesh=None) -> "CobsIndex":
         """Index reads into their files' group columns (one ``"cols"``
         plan per group), in place; marks this view consumed (unless
         ``donate=False``, which inserts into copies)."""
@@ -245,13 +248,14 @@ class CobsIndex(_StateView):
             plan = ingest.plan_insert(
                 g.cfg, self.scheme, tuple(sub.shape), tuple(g.words.shape),
                 kind="cols", window_min=window_min, device=self.device)
-            plan.execute(g.words, sub, slots[sel, 1], backend=backend)
+            plan.execute(g.words, sub, slots[sel, 1], backend=backend,
+                         mesh=mesh)
         if donate:
             state_mod.mark_consumed(self)
         return dataclasses.replace(self, groups=tuple(groups))
 
     def query_batch(self, reads, *, backend: str = "idl_probe",
-                    dedup: bool = False) -> torch.Tensor:
+                    dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, n_files) bool MSMT kmer slices (Definition 3)."""
         state_mod.ensure_live(self, what="engine")
         reads = query.as_reads(reads, self.device)
@@ -262,7 +266,8 @@ class CobsIndex(_StateView):
             plan = query.plan_query(
                 g.cfg, self.scheme, tuple(reads.shape), tuple(g.words.shape),
                 bit_probe=False, device=self.device)
-            masks = plan.execute(g.words, reads, backend=backend, dedup=dedup)
+            masks = plan.execute(g.words, reads, backend=backend, dedup=dedup,
+                                 mesh=mesh)
             out[:, :, torch.as_tensor(g.file_ids, device=self.device)] = \
                 packed.unpack_file_bits(masks, len(g.file_ids))
         return out
@@ -341,15 +346,12 @@ class RamboIndex(_StateView):
         probes, made once per words tensor and kept on it. Inserts update
         the words in place, so every insert drops the copy first
         (:func:`_drop_transposed`)."""
-        cached = getattr(self.words, _TRANSPOSED, None)
-        if cached is None:
-            cached = self.words.t().contiguous()
-            setattr(self.words, _TRANSPOSED, cached)
-        return cached
+        return transposed_words(self.words)
 
     def insert_batch(self, reads, file_ids=None, *,
                      backend: str = "idl_insert", donate: bool = True,
-                     window_min: Optional[int] = None) -> "RamboIndex":
+                     window_min: Optional[int] = None,
+                     mesh=None) -> "RamboIndex":
         """Index reads into their R bucket filters (one ``"rows"`` plan), in
         place; marks this view consumed (unless ``donate=False``)."""
         state_mod.ensure_live(self, what="engine")
@@ -361,13 +363,13 @@ class RamboIndex(_StateView):
         if donate:
             _drop_transposed(self.words)
         words = plan.execute(self.words, reads, self._filter_rows(fids),
-                             backend=backend, donate=donate)
+                             backend=backend, donate=donate, mesh=mesh)
         if donate:
             state_mod.mark_consumed(self)
         return dataclasses.replace(self, words=words)
 
     def query_grid(self, reads, *, backend: str = "idl_probe",
-                   dedup: bool = False) -> torch.Tensor:
+                   dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, R, buckets) bool: bucket hits per kmer. The R·B
         filters are probed as one transposed ``(m/32, R·B)`` bit matrix:
         each location resolves every bucket's bit from one row."""
@@ -378,16 +380,17 @@ class RamboIndex(_StateView):
             (self.cfg.m // 32, self.n_rep * self.n_buckets), bit_probe=True,
             device=self.words.device)
         vals = plan.execute(self._words_t, reads, backend=backend,
-                            dedup=dedup)              # (B, n_k, R·B) {0, 1}
+                            dedup=dedup, mesh=mesh)     # (B, n_k, R·B) {0, 1}
         return (vals == 1).reshape(vals.shape[:2]
                                    + (self.n_rep, self.n_buckets))
 
     def query_batch(self, reads, *, backend: str = "idl_probe",
-                    dedup: bool = False) -> torch.Tensor:
+                    dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, n_files) bool: the file's bucket hit in all R
         repetitions (an AND accumulated over R, never a (B, n_k, R, N)
         intermediate)."""
-        grid = self.query_grid(reads, backend=backend, dedup=dedup)
+        grid = self.query_grid(reads, backend=backend, dedup=dedup,
+                               mesh=mesh)
         assign = torch.as_tensor(self.assignment, dtype=torch.int64,
                                  device=grid.device)
         out = grid[:, :, 0, assign[0]]
@@ -406,6 +409,16 @@ class RamboIndex(_StateView):
 
 # the attribute of a RAMBO words tensor that holds its transposed copy
 _TRANSPOSED = "_rambo_words_t"
+
+
+def transposed_words(words: torch.Tensor) -> torch.Tensor:
+    """The contiguous transpose of a RAMBO words tensor (or a word shard of
+    it), made once and kept on the tensor until :func:`_drop_transposed`."""
+    cached = getattr(words, _TRANSPOSED, None)
+    if cached is None:
+        cached = words.t().contiguous()
+        setattr(words, _TRANSPOSED, cached)
+    return cached
 
 
 def _drop_transposed(words: torch.Tensor) -> None:
@@ -435,7 +448,8 @@ class BitSlicedIndex(_StateView):
 
     def insert_batch(self, reads, file_ids=None, *,
                      backend: str = "idl_insert", donate: bool = True,
-                     window_min: Optional[int] = None) -> "BitSlicedIndex":
+                     window_min: Optional[int] = None,
+                     mesh=None) -> "BitSlicedIndex":
         """Index reads into their file columns, in place; returns the
         updated view and marks this one consumed (unless ``donate=False``,
         which inserts into a copy)."""
@@ -448,13 +462,13 @@ class BitSlicedIndex(_StateView):
             device=self.words.device,
         )
         words = plan.execute(self.words, reads, fids, backend=backend,
-                             donate=donate)
+                             donate=donate, mesh=mesh)
         if donate:
             state_mod.mark_consumed(self)
         return dataclasses.replace(self, words=words)
 
     def query_batch(self, reads, *, backend: str = "idl_probe",
-                    dedup: bool = False) -> torch.Tensor:
+                    dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, F/32) int32 per-kmer file masks (packed)."""
         state_mod.ensure_live(self, what="engine")
         reads = query.as_reads(reads, self.words.device)
@@ -462,7 +476,8 @@ class BitSlicedIndex(_StateView):
             self.cfg, self.scheme, tuple(reads.shape), tuple(self.words.shape),
             bit_probe=False, lane32=True, device=self.words.device,
         )
-        return plan.execute(self.words, reads, backend=backend, dedup=dedup)
+        return plan.execute(self.words, reads, backend=backend, dedup=dedup,
+                            mesh=mesh)
 
     def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
         """(B, n_files) bool — the serve-layout MSMT (one theta rule)."""

@@ -1,7 +1,8 @@
 """The shared ingest layer: one planned insert path.
 
 Port of :mod:`repro.index.ingest` (plans of every ``kind``, the plain and
-the planned backend, and the streaming archive builder). Every insert is a
+the planned backend, the streaming archive builder and its sharded twin
+:func:`build_sharded_archive`). Every insert is a
 scatter-OR of single bits into a packed ``(n_rows, W)`` int32 bit-matrix,
 described by ``(row, word_col, bit)`` targets. Backends:
 
@@ -10,7 +11,13 @@ described by ``(row, word_col, bit)`` targets. Backends:
   batch's sorted unique bit positions and the reference planner's
   counters) + the CUDA ``insert_planned`` kernel, one launch per batch (on
   a CPU matrix, the kernel's plain version). The reference's numpy run
-  planner stays as :meth:`InsertPlan.plan_runs`, off this path.
+  planner stays as :meth:`InsertPlan.plan_runs`, off this path;
+* ``"sharded"``    — the reference's ``shard_map`` inserter over a tuple of
+  ``torch.device`` objects (``query.default_mesh``): ``"bits"`` plans split the
+  rows, the others the word columns; each shard computes the whole
+  target stream on its device, keeps its own slice's targets and
+  scatters them with the plain scatter. Scatter-OR commutes, so no
+  collective is needed.
 
 Both update the matrix **in place** (the reference donates instead);
 ``donate=False`` scatters into a clone and leaves the input untouched.
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 from typing import Iterable, Optional
 
@@ -32,7 +40,7 @@ from repro_torch.core import hashing, idl as idl_mod, minhash
 from repro_torch.index import packed, query
 from repro_torch.kernels.idl_insert import ops as ins_ops
 
-BACKENDS = ("torch", "idl_insert")
+BACKENDS = ("torch", "idl_insert", "sharded")
 KINDS = ("bits", "rows", "cols")
 
 
@@ -136,6 +144,20 @@ class InsertPlan:
             row = torch.where(keep, row, self.matrix_shape[0])
         return row.reshape(-1), wc.reshape(-1), bit.reshape(-1)
 
+    def slice_targets(self, reads: torch.Tensor, aux, lo: int, hi: int):
+        """The targets that land in the rows (``"bits"``) or word columns
+        ``[lo, hi)``, relative to that slice of the matrix; every other
+        target goes to the row past the slice, which every backend drops
+        (a minimizer-masked target already lies past the full matrix)."""
+        row, wc, bit = self.targets(reads, aux)
+        if self.kind == "bits":
+            local = (row >= lo) & (row < hi)
+            row, n_rows = row - lo, hi - lo
+        else:
+            local = (wc >= lo) & (wc < hi)
+            wc, n_rows = wc - lo, self.matrix_shape[0]
+        return torch.where(local, row, n_rows), wc, bit
+
     def flat_positions(self, reads: torch.Tensor,
                        aux: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The batch's flat int64 bit positions ``(row * W + word) * 32 +
@@ -181,11 +203,13 @@ class InsertPlan:
         *,
         backend: str = "torch",
         donate: bool = True,
+        mesh=None,
     ) -> torch.Tensor:
         """Scatter-OR the batch into ``matrix`` in place; returns it.
 
         ``matrix`` may be 1-D when ``W == 1``. ``donate=False`` scatters
         into a clone instead (one extra device copy) and returns the clone.
+        ``mesh`` is the ``"sharded"`` backend's tuple of devices.
         """
         if not donate:
             matrix = matrix.clone()
@@ -205,10 +229,36 @@ class InsertPlan:
             t0 = time.perf_counter()
             ins_ops.insert_planned(mat, cplan)
             query.record_stage("insert", "launch", t0)
+        elif backend == "sharded":
+            self._execute_sharded(mat, reads, aux, mesh)
         else:
             raise ValueError(
                 f"unknown ingest backend {backend!r} (want one of {BACKENDS})")
         return matrix
+
+    def _execute_sharded(self, mat, reads, aux, mesh) -> None:
+        """The reference's ``_sharded_inserter`` over a tuple of devices:
+        shard ``s`` owns rows (``"bits"``) or word columns ``[s·p,
+        (s+1)·p)``, ``p = ceil(extent / n)``; a foreign target goes to the
+        row past the shard's slice and is dropped. A slice that is not a
+        dense tensor on its shard's device is scattered in a copy and
+        copied back."""
+        mesh = tuple(query.default_mesh(mat.device) if mesh is None
+                     else mesh)
+        split_rows = self.kind == "bits"
+        extent = self.matrix_shape[0 if split_rows else 1]
+        per = -(-extent // len(mesh))
+        for s, dev in enumerate(mesh):
+            lo, hi = s * per, min((s + 1) * per, extent)
+            if lo >= hi:
+                continue
+            sub = mat[lo:hi] if split_rows else mat[:, lo:hi]
+            work = sub.to(dev).contiguous()
+            packed.scatter_or_matrix(work, *self.slice_targets(
+                reads.to(dev), None if aux is None else aux.to(dev),
+                lo, hi))
+            if work.data_ptr() != sub.data_ptr():
+                sub.copy_(work)
 
 
 PLAN_CACHE_SIZE = 512
@@ -342,3 +392,84 @@ def build_archive(
     for length in sorted(pending):
         flush(length, force=True)
     return index
+
+
+def build_sharded_archive(
+    index,
+    files: Iterable,
+    *,
+    n_shards: int,
+    out_dir: Optional[str] = None,
+    read_len: int = 230,
+    chunk_reads: int = 64,
+    backend: str = "idl_insert",
+    window_min: Optional[int] = None,
+    pad_final: bool = True,
+    set_version: int = 0,
+):
+    """Partition an empty engine/state and stream the archive into every
+    shard in parallel — one thread per shard over the insert path
+    :func:`build_archive` uses (on a CUDA index each thread launches its
+    own kernels on the device's default stream; a shard's words are
+    written only by its own thread).
+
+    Row-probe shards (bit-sliced / cobs) each ingest only their own file
+    range — bit-sliced file ids are renumbered into the shard-local
+    column space. Bit-probe shards (flat filter / rambo) each ingest EVERY
+    read through a :class:`repro_torch.index.shards.ShardBuilder`, which
+    keeps only the targets in the shard's word range (scatter-OR commutes
+    and is idempotent, so dropping foreign targets is exact). Joining the
+    result is bit-identical to the unsharded ``build_archive``.
+
+    Returns ``(spec, [IndexState, ...])``; with ``out_dir`` also writes
+    the shard-set snapshot (``shards.save_shard_set``) stamped
+    ``set_version``.
+    """
+    from repro_torch.index import shards as shards_mod
+    from repro_torch.index import state as state_mod
+
+    spec, parts = shards_mod.partition_state(index, n_shards)
+    items = []
+    for pos, item in enumerate(files):
+        fid, seqs = _file_sequences(item, pos)
+        items.extend((fid, codes) for codes in seqs)
+    build_kw = dict(read_len=read_len, chunk_reads=chunk_reads,
+                    window_min=window_min, pad_final=pad_final)
+    results: list = [None] * n_shards
+    errors: list = []
+
+    def run(s: int) -> None:
+        try:
+            if spec.row_probe:
+                owned = shards_mod.shard_files(spec, s)
+                base = owned[0] if (
+                    owned and spec.meta.engine == "bitsliced") else 0
+                own = set(owned)
+                mine = [(fid - base, codes)
+                        for fid, codes in items if fid in own]
+                built = build_archive(
+                    state_mod.to_engine(parts[s]), mine,
+                    backend=backend, **build_kw)
+                results[s] = state_mod.from_engine(built)
+            else:
+                builder = shards_mod.ShardBuilder(spec, s, parts[s])
+                built = build_archive(builder, items,
+                                      backend=backend, **build_kw)
+                results[s] = built.state
+        except Exception as e:  # noqa: BLE001 - surfaced to the caller
+            errors.append((s, e))
+
+    threads = [threading.Thread(target=run, args=(s,),
+                                name=f"idl-shard-build-{s}")
+               for s in range(n_shards)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        s, e = min(errors, key=lambda x: x[0])
+        raise RuntimeError(f"shard {s} build failed: {e!r}") from e
+    if out_dir is not None:
+        shards_mod.save_shard_set(spec, results, out_dir,
+                                  version=set_version)
+    return spec, results

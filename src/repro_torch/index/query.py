@@ -16,7 +16,7 @@ Engine                  Probed matrix               Probe kind
 
 A :class:`QueryPlan` holds everything static and is built once per
 geometry through an LRU cache (:func:`plan_query`). Executing a plan picks
-one of two backends:
+one of three backends:
 
 * ``"torch"``     — the plain gather (the port of the reference's ``"jnp"``);
 * ``"idl_probe"`` — the compact plan built on the matrix's device (the
@@ -26,14 +26,20 @@ one of two backends:
   :data:`PROBE_BITS_MAX_WORDS` words (the flat filter) and the gather's
   bit mode ``gather_planned_bits`` for bit probes of wider rows (RAMBO);
   on a CPU matrix, the kernel's plain version. The reference's numpy run
-  planner stays as :meth:`QueryPlan.plan_runs`, off this path.
+  planner stays as :meth:`QueryPlan.plan_runs`, off this path;
+* ``"sharded"``   — the reference's ``shard_map`` executor over a 1-D mesh,
+  here a tuple of ``torch.device`` objects (:func:`default_mesh`: every visible
+  CUDA device for a CUDA matrix, ``(cpu,)`` for a CPU one). Each shard's
+  body runs on its own device as a plain gather: bit probes split the
+  rows and sum their per-shard miss counts on the mesh's first device (the
+  reference's ``psum``), row probes split the file words and concatenate.
 
 ``execute(..., dedup=True)`` probes each distinct kmer of the batch once,
 in the reference's order (see :meth:`QueryPlan._execute_dedup`), and
 gathers the answers back: the same answers, and the same ``locality.*``
 counters as the reference's dedup path.
 
-Both backends are bit-identical to each other and to the reference
+All backends are bit-identical to each other and to the reference
 (``tests/test_torch_index.py``, ``tests/test_torch_engines.py``).
 """
 
@@ -55,7 +61,7 @@ from repro_torch.kernels.idl_probe import ops as probe_ops
 from repro_torch.kernels.idl_probe.ref import and_reduce
 from repro_torch.obs import metrics as obs_metrics
 
-BACKENDS = ("torch", "idl_probe")
+BACKENDS = ("torch", "idl_probe", "sharded")
 
 
 def record_locality(*, scheme: str, op: str, tile_bytes: int, n_runs: int,
@@ -133,6 +139,13 @@ def as_reads(reads, device) -> torch.Tensor:
         reads = torch.as_tensor(np.asarray(reads, dtype=np.uint8),
                                 device=device)
     return reads[None] if reads.dim() == 1 else reads
+
+
+def batch_locations(reads: torch.Tensor, *, cfg: idl_mod.IDLConfig,
+                    scheme: str, lane32: bool) -> torch.Tensor:
+    """(B, η, n_kmers) int64 locations of a read batch: the one location
+    body the insert path (:mod:`repro_torch.index.packed`) uses too."""
+    return packed.batch_locations(cfg, reads, scheme, lane32=lane32)
 
 
 def _next_pow2(n: int) -> int:
@@ -264,24 +277,29 @@ class QueryPlan:
 
     # -- execution ----------------------------------------------------------
     def execute(self, matrix: torch.Tensor, reads, *,
-                backend: str = "torch", dedup: bool = False) -> torch.Tensor:
+                backend: str = "torch", dedup: bool = False,
+                mesh=None) -> torch.Tensor:
         """(B, n_kmers, W) int32: AND over η of per-probe row values.
 
         ``bit_probe`` plans extract the probed bit first, so values are
         {0, 1} per word slot; row plans return full AND-ed word masks.
         ``matrix`` may be 1-D when ``W == 1``. ``dedup=True`` probes each
         distinct kmer once through the same backend (the same answers).
+        ``mesh`` is the ``"sharded"`` backend's tuple of devices (default
+        :func:`default_mesh` of the matrix's device).
         """
         reads = as_reads(reads, matrix.device)
         matrix = matrix.reshape(self.matrix_shape)
         if dedup:
-            return self._execute_dedup(matrix, reads, backend)
+            return self._execute_dedup(matrix, reads, backend, mesh)
         if backend == "torch":
             locs = self.locations(reads)
             rows = matrix[self.row_indices(locs)]
             return _finish_probe(rows, locs, bit_probe=self.bit_probe)
         if backend == "idl_probe":
             return self._execute_idl_probe(matrix, reads)
+        if backend == "sharded":
+            return self._execute_sharded(matrix, reads, mesh)
         raise ValueError(
             f"unknown query backend {backend!r} (want one of {BACKENDS})")
 
@@ -301,7 +319,41 @@ class QueryPlan:
         record_stage("query", "launch", t0)
         return out
 
-    def _execute_dedup(self, matrix, reads, backend):
+    def _execute_sharded(self, matrix, reads, mesh):
+        """The reference's ``_sharded_executor`` over a tuple of devices.
+
+        Bit probes: shard ``s`` owns rows ``[s·r, (s+1)·r)``, ``r =
+        ceil(n_rows / n)``, hashes the batch on its device, reduces its
+        local probes to per-(kmer, slot) miss counts over η, and the counts
+        sum on the mesh's first device; a hit is zero misses anywhere. Row
+        probes: shard ``s`` owns file words ``[s·w, (s+1)·w)``, gathers and
+        ANDs over η on its device, and the slices concatenate. A shard
+        whose range is empty is skipped; the answer goes to the matrix's
+        device.
+        """
+        mesh = tuple(default_mesh(matrix.device) if mesh is None else mesh)
+        n_rows, w = self.matrix_shape
+        extent = n_rows if self.bit_probe else w
+        per = -(-extent // len(mesh))
+        parts = []
+        for s, dev in enumerate(mesh):
+            lo, hi = s * per, min((s + 1) * per, extent)
+            if lo >= hi:
+                continue
+            locs = self.locations(reads.to(dev))
+            if self.bit_probe:
+                parts.append(local_miss_counts(
+                    matrix[lo:hi].to(dev), locs, lo, hi).to(mesh[0]))
+            else:
+                mat = matrix[:, lo:hi].to(dev)
+                parts.append(and_reduce(mat[locs], dim=1).to(mesh[0]))
+        if self.bit_probe:
+            out = (sum(parts) == 0).to(torch.int32)
+        else:
+            out = torch.cat(parts, dim=-1)
+        return out.to(matrix.device)
+
+    def _execute_dedup(self, matrix, reads, backend, mesh=None):
         """The unique-kmer probe path, factored on the reads' device.
 
         Each distinct kmer is probed as a standalone length-k read through
@@ -328,8 +380,31 @@ class QueryPlan:
         order = torch.sort(locs0, stable=True).indices
         rank = torch.empty_like(order)
         rank[order] = torch.arange(order.numel(), device=order.device)
-        vals = kplan.execute(matrix, uniq[order], backend=backend)
+        vals = kplan.execute(matrix, uniq[order], backend=backend, mesh=mesh)
         return vals[:, 0][rank[inverse]].reshape(b, n_k, vals.shape[-1])
+
+
+def local_miss_counts(mat: torch.Tensor, locs: torch.Tensor, lo: int,
+                      hi: int) -> torch.Tensor:
+    """(B, n_kmers, W) int32 misses over η of the bit probes ``locs``
+    (B, η, n_kmers) that land in rows ``[lo, hi)``, read from ``mat``, the
+    matrix's slice of those rows; the other probes count no miss. Summed
+    over every slice of the rows, a kmer hits iff its total is zero."""
+    rows = locs >> 5
+    local = (rows >= lo) & (rows < hi)
+    got = mat[torch.where(local, rows - lo, 0)]           # (B, η, n_k, W)
+    bit = (got >> (locs & 31).to(torch.int32)[..., None]) & 1
+    miss = torch.where(local[..., None], 1 - bit, 0)
+    return miss.sum(dim=1, dtype=torch.int32)
+
+
+def default_mesh(device="cuda") -> tuple:
+    """The ``"sharded"`` backends' 1-D mesh for a matrix on ``device``:
+    every visible CUDA device, or ``(cpu,)`` off the card."""
+    if torch.device(device).type != "cuda":
+        return (torch.device("cpu"),)
+    return tuple(torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count()))
 
 
 # Bit probes of rows up to this many words (one 32-byte sector) take

@@ -105,14 +105,17 @@ def from_numpy(meta_json: dict, words: Sequence[np.ndarray],
     from repro_torch.index import store
 
     meta = store.meta_from_json(meta_json)
+    dev = torch.device(device)
     tensors = []
     for arr in words:
         if arr.dtype not in (np.uint32, np.int32):
             raise ValueError(f"word arrays must be uint32/int32, got {arr.dtype}")
-        # one host copy: the source may be a read-only memory map, and the
-        # state must never alias the caller's array
-        host = np.array(arr, copy=True).view(np.int32)
-        tensors.append(torch.from_numpy(host).to(device))
+        host = arr.view(np.int32)
+        if dev.type == "cpu" or not host.flags.writeable:
+            # one host copy: the state must never alias the caller's array,
+            # and torch takes no read-only one; an upload copies anyway
+            host = np.array(host, copy=True)
+        tensors.append(torch.from_numpy(host).to(dev))
     return IndexState(words=tuple(tensors), meta=meta)
 
 

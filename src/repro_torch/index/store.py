@@ -4,8 +4,10 @@ Port of :mod:`repro.index.store`, with the same format: one directory
 holding ``manifest.json`` (format tag, integer version, ``StateMeta``, and
 per-array shape / dtype / CRC-32) and one ``words_<i>.npy`` (uint32) per
 word matrix (a COBS index writes one per size group). Snapshots of every
-engine written by either package load in the other; shard-set snapshots
-are not read here.
+engine written by either package load in the other. A shard-set snapshot
+(:mod:`repro_torch.index.shards`) is refused by :func:`load` with a pointer
+to ``shards.load_shard_set``, and :func:`read_meta` answers with its full
+unsharded meta.
 
 ``verify`` picks when the checksum pass runs: ``"eager"`` (before ``load``
 returns), ``"lazy"`` (a background thread; :func:`check_verified` reports
@@ -105,7 +107,7 @@ def save(index, directory: str) -> str:
             "file": fname,
             "shape": list(arr.shape),
             "dtype": str(arr.dtype),
-            "crc32": zlib.crc32(arr.tobytes()),
+            "crc32": zlib.crc32(arr),
         })
     manifest = {
         "format": FORMAT,
@@ -123,6 +125,14 @@ def save(index, directory: str) -> str:
 def _read_manifest(directory: str) -> dict:
     path = os.path.join(directory, MANIFEST)
     if not os.path.exists(path):
+        from repro_torch.index import shards as shards_mod
+
+        if shards_mod.is_shard_set(directory):
+            raise SnapshotError(
+                f"{directory!r} is a SHARD-SET snapshot, not a single-index "
+                f"snapshot — load it with "
+                f"repro_torch.index.shards.load_shard_set (or read its meta "
+                f"with store.read_meta)")
         raise SnapshotError(f"no {MANIFEST} in {directory!r} — not a snapshot")
     try:
         with open(path) as f:
@@ -167,7 +177,7 @@ class _LazyVerify:
             for spec in specs:
                 arr = np.load(os.path.join(self.directory, spec["file"]),
                               mmap_mode="r")
-                crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+                crc = zlib.crc32(np.ascontiguousarray(arr))
                 if crc != spec["crc32"]:
                     raise _crc_error(spec, crc, "background ")
         except SnapshotError as e:
@@ -202,7 +212,15 @@ def check_verified(directory: str, *, wait: bool = True) -> bool:
 
 
 def read_meta(directory: str) -> state_mod.StateMeta:
-    """Just the snapshot's :class:`StateMeta` (no array bytes touched)."""
+    """Just the snapshot's :class:`StateMeta` (no array bytes touched): how
+    the fabric gateway learns the geometry without holding the index. A
+    shard set answers with the FULL unsharded meta from its CRC-checked
+    set manifest."""
+    if not os.path.exists(os.path.join(directory, MANIFEST)):
+        from repro_torch.index import shards as shards_mod
+
+        if shards_mod.is_shard_set(directory):
+            return shards_mod.read_set_meta(directory).spec.meta
     return meta_from_json(_read_manifest(directory)["meta"])
 
 
@@ -223,8 +241,9 @@ def load(directory: str, *, mmap: bool = True,
          device="cuda") -> state_mod.IndexState:
     """Load a snapshot into an :class:`IndexState` on ``device``.
 
-    ``mmap=True`` opens the word files memory-mapped, so bytes page in as
-    the upload consumes them. Raises :class:`SnapshotError` on any
+    ``mmap=True`` opens the word files memory-mapped (copy-on-write, so
+    the mapping is never written back), so bytes page in as the upload
+    consumes them; checksums run over the mapped bytes without a copy. Raises :class:`SnapshotError` on any
     mismatch (foreign, corrupt, truncated or future-version snapshots).
     """
     verify = _normalize_verify(verify)
@@ -246,7 +265,7 @@ def load(directory: str, *, mmap: bool = True,
         if not os.path.exists(path):
             raise SnapshotError(f"snapshot array file missing: {path!r}")
         try:
-            arr = np.load(path, mmap_mode="r" if mmap else None)
+            arr = np.load(path, mmap_mode="c" if mmap else None)
         except ValueError as e:
             raise SnapshotError(f"corrupt array file {path!r}: {e}") from e
         if list(arr.shape) != list(spec["shape"]) or \
@@ -255,7 +274,7 @@ def load(directory: str, *, mmap: bool = True,
                 f"array {spec['file']!r} is {arr.dtype}{arr.shape}, "
                 f"manifest says {spec['dtype']}{tuple(spec['shape'])}")
         if verify == "eager":
-            crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
+            crc = zlib.crc32(np.ascontiguousarray(arr))
             if crc != spec["crc32"]:
                 raise _crc_error(spec, crc)
         words.append(arr)

@@ -56,7 +56,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import kmer_cache as kmer_cache_mod
 
-BACKENDS = ("torch", "idl_probe")
+BACKENDS = ("torch", "idl_probe", "sharded")
 
 # distinguishes each service instance's counter series in the registry
 _SERVICE_IDS = itertools.count()
@@ -68,7 +68,9 @@ def next_pow2(n: int) -> int:
 
 
 def bucket_for(n_kmers: int, min_bucket_kmers: int = 32) -> int:
-    """The pow2 kmer bucket a request with ``n_kmers`` kmers lands in."""
+    """The pow2 kmer bucket a request with ``n_kmers`` kmers lands in
+    (module-level: the fabric gateway and the scatter router bucket with
+    the workers' geometry without holding an index)."""
     return max(next_pow2(n_kmers), min_bucket_kmers)
 
 
@@ -87,7 +89,11 @@ class SearchResult:
     filter — and ``file_ids`` its decoded matching file indices (``(0,)``
     or ``()`` for the flat filter). ``version`` is the served state's
     version and ``delta_seq`` the live index's write watermark (0 for a
-    static index): together, the staleness coordinates of the answer."""
+    static index): together, the staleness coordinates of the answer.
+    ``missing_files`` names the files whose row-probe shard was down when
+    a scatter-gather answer was assembled (their entries of ``matches``
+    are vacuously False; see :mod:`repro_torch.serving.scatter`); it is
+    ``()`` everywhere else."""
 
     request_id: int
     matches: np.ndarray
@@ -96,6 +102,7 @@ class SearchResult:
     bucket: int
     version: int = 0
     delta_seq: int = 0
+    missing_files: Tuple[int, ...] = ()
 
 
 def normalize_request(request: Union[SearchRequest, np.ndarray], k: int
@@ -119,7 +126,7 @@ class ServiceConfig:
     """Serving knobs (static for the life of the service)."""
 
     theta: float = 1.0            # kmer-coverage threshold for a file match
-    backend: str = "idl_probe"    # "idl_probe" | "torch"
+    backend: str = "idl_probe"    # "idl_probe" | "torch" | "sharded"
     max_batch: int = 8            # rows per bucket step (fixed batch shape)
     min_bucket_kmers: int = 32    # floor of the pow2 kmer buckets
     auto_flush: bool = True       # flush a bucket once max_batch are waiting

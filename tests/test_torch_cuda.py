@@ -622,3 +622,77 @@ def test_live_router_insert_and_compaction_on_cuda(cuda):
         lives = [r.service.live for r in rt._replicas]
         assert lives[0].base is lives[1].base
         assert torch.equal(base.words, base_words)   # never written
+
+
+def _fleet_launches(stats) -> dict:
+    """Kernel launches summed over a fleet's ``stats`` replies."""
+    out: dict = {}
+    for s in stats.values():
+        for name, n in s["device"]["launches"].items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def test_two_worker_fabric_on_cuda(cuda, tmp_path):
+    """Two worker processes each load the snapshot onto the card: answers
+    equal the direct service before and after a fanned write, each worker
+    launched the kernels (its stats reply's counters) and reports its peak
+    device memory."""
+    from repro_torch.index import store
+    from repro_torch.serving import (FabricConfig, GeneSearchService,
+                                     ProcessFabric, ServiceConfig)
+
+    genomes, queries = _tier_reads()
+    base = _tier_engine("bitsliced", cuda, genomes)
+    union = base.insert_batch(genomes[4:6], np.asarray([20, 39]),
+                              donate=False)
+    svc_cfg = ServiceConfig(max_batch=4)
+    want = [_tier_rows(GeneSearchService(e, svc_cfg).search(queries))
+            for e in (base, union)]
+    snap = store.save(base, str(tmp_path / "snap"))
+    with ProcessFabric(snap, FabricConfig(n_workers=2, device="cuda",
+                                          service=svc_cfg),
+                       journal_path=str(tmp_path / "wal.idlj")) as fab:
+        for rows, phase in zip(want, ("base", "union")):
+            if phase == "union":
+                fab.insert(genomes[4:6], [20, 39]).result(timeout=120)
+            got = _tier_rows(f.result(timeout=120) for f in
+                             [fab.submit(q) for q in queries * 2])
+            for a, b in zip(rows * 2, got):
+                assert isinstance(b, np.ndarray)
+                np.testing.assert_array_equal(a, b)
+        stats = fab.stats()
+        launches = _fleet_launches(stats)
+        assert launches["gather_planned_rows"] > 0
+        assert launches["window_min"] > 0
+        assert launches["insert_planned"] == 2        # one per worker
+        assert all(s["device"]["max_memory_allocated"] > 0
+                   for s in stats.values())
+
+
+def test_two_shard_scatter_router_on_cuda(cuda, tmp_path):
+    """An in-process scatter router over two file shards loaded onto the
+    card answers like the direct service over the unsharded index, each
+    shard's slice served through the row kernel."""
+    from repro_torch.index import shards
+    from repro_torch.serving import (GeneSearchService, ScatterConfig,
+                                     ScatterGatherRouter, ServiceConfig)
+
+    genomes, queries = _tier_reads()
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 10, eta=3, m=1 << 20)
+    eng = engines.BitSlicedIndex.build(cfg, "idl", 70, device=cuda
+                                       ).insert_batch(
+        genomes, np.asarray([0, 3, 33, 40, 64, 69]))
+    svc_cfg = ServiceConfig(max_batch=4)
+    want = _tier_rows(GeneSearchService(eng, svc_cfg).search(queries))
+    spec, parts = shards.partition_state(eng, 2)
+    set_dir = shards.save_shard_set(spec, parts, str(tmp_path / "set"))
+    before = probe_kernel.launches
+    with ScatterGatherRouter(set_dir, ScatterConfig(
+            service=svc_cfg, device="cuda")) as router:
+        got = [f.result(timeout=120) for f in
+               [router.submit(q) for q in queries]]
+    assert probe_kernel.launches > before
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b.matches)
+        assert b.missing_files == ()

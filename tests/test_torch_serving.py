@@ -202,6 +202,30 @@ def test_launcher_recall_matches_reference():
     assert recall == "recall 8/8"
 
 
+@pytest.mark.parametrize("flags,line", [
+    (["--files", "32", "--procs", "2"], "fabric: 2 worker processes"),
+    pytest.param(["--files", "64", "--shards", "2"],
+                 "2 shards over the 'files' axis", marks=pytest.mark.slow),
+], ids=["procs", "shards"])
+def test_launcher_fleet_recall_matches_reference(flags, line, tmp_path):
+    """``--procs 2`` (a two-worker fabric) and ``--shards 2`` (a scatter
+    router over two file shards) print the reference launcher's recall;
+    ``--obs-dump`` writes the merged snapshot and its Chrome trace."""
+    args = flags + ["--batch", "4", "--requests", "2"]
+    dump = str(tmp_path / "obs.json")
+    port = _run("repro_torch.launch.serve",
+                args + ["--device", "cpu", "--obs-dump", dump], SRC)
+    ref = _run("repro.launch.serve", args, SRC)
+    assert port.returncode == 0, port.stderr[-1500:]
+    assert ref.returncode == 0, ref.stderr[-1500:]
+    assert line in port.stdout and line in ref.stdout
+    recall = re.search(r"recall \d+/\d+", port.stdout).group(0)
+    assert recall == re.search(r"recall \d+/\d+", ref.stdout).group(0)
+    assert recall == "recall 8/8"
+    assert "obs: " in port.stdout and os.path.exists(dump)
+    assert os.path.getsize(dump) > 0
+
+
 def test_port_imports_neither_jax_nor_reference():
     mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")]
