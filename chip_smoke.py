@@ -102,11 +102,27 @@ reference package) and runs these phases, printing one line each:
    the one-card mesh == ``"idl_probe"``; 9b phase 6's RAMBO index in 2
    word shards (``sharded_msmt`` and both routers == the unsharded index; a
    killed shard process fails every affected future with
-   ``ShardDeadError``).
+   ``ShardDeadError``);
+10. the LM family's serving path, plain PyTorch (no kernel of ``csrc/``;
+   the path must launch none): 10a ``granite-moe-1b-a400m`` at full
+   width cut to 2 layers, f32 with TF32 off, the same seeded weights on
+   the card and on the CPU, a 1 x 64 prefill and 4 greedy decode steps
+   (logits within rtol/atol 1e-3, every routing index and greedy token
+   equal); 10b the same arch at full depth in bf16 (``param_dtype``): an
+   8 x 512 prefill through the registry's ``step_fn`` (the grouped MoE
+   dispatch) and 32 decode steps at batch 8 (the global dispatch), every
+   logit finite, then prefill + one decode step against ``lm_forward`` on
+   the extended sequence within rtol/atol 0.05 with capacity 16 (in f32
+   of the same weights: in bf16 the two paths flip near-tied routings of
+   the last token, on the CPU as on the card; the bf16 gap is printed);
+   10c ``granite-20b`` at full width, 4 of its 52 layers, bf16, the same
+   work and check (in bf16); prefill and decode times, decode tokens a
+   second, the prefill's model-FLOP share of 989 TFLOP/s and the peak
+   device memory.
 
 The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
-6, 7c, 9b. Phases 8 and 9 print their temp root's free
+6, 7c, 9b, 10 (after 9b has freed the card). Phases 8 and 9 print their temp root's free
 bytes before they save (8 and 9a write 8 GiB snapshots; too little room
 fails the run) and remove their snapshots, and print their wall seconds.
 
@@ -2647,6 +2663,293 @@ def rambo_shards_phase(cfg, archive, eng) -> dict:
     return launches
 
 
+# -- phase 10: the LM family's serving path (prefill + KV-cache decode) ------
+
+LM_MOE = "granite-moe-1b-a400m"      # 10a, 10b: the MoE arch
+LM_DENSE = "granite-20b"             # 10c: the dense arch
+LM_CHECK_LAYERS = 2                  # 10a's depth (card vs CPU, f32)
+LM_CHECK_SEQ = 64                    # 10a's prompt and 10b/10c's check prompt
+LM_CHECK_STEPS = 4                   # 10a's decode steps
+LM_DENSE_LAYERS = 4                  # 10c's depth, of granite-20b's 52
+LM_BATCH = 8                         # 10b/10c prefill and decode batch
+LM_SEQ = 512                         # 10b/10c prefill length
+LM_DECODE_STEPS = 32
+LM_PREFILL_REPS = 3
+LM_SEED = 0
+BF16_PEAK_FLOPS = 989e12             # H100 SXM dense bf16 (data sheet)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record each MoE routing call while the block runs: yields a list of
+    ``(groups, gate_idx)``, the indices left on their device (no sync)."""
+    from repro_torch.models import moe
+
+    route, seen = moe.route, []
+
+    def wrapper(params, x, cfg, groups=1):
+        out = route(params, x, cfg, groups)
+        seen.append((groups, out[2]))
+        return out
+
+    moe.route = wrapper
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def greedy_decode(model, cfg, tokens, steps: int, max_len: int):
+    """Prefill ``tokens`` then ``steps`` greedy decode steps through the
+    model's entry points: (prefill logits, [step logits], [tokens fed])."""
+    from repro_torch.models import transformer as tf
+
+    with torch.inference_mode():
+        logits, cache = tf.lm_prefill(model.params(), tokens, cfg)
+        full = model.init_kv_cache(tokens.shape[0], max_len)
+        full["k"][:, :, :tokens.shape[1]] = cache["k"]
+        full["v"][:, :, :tokens.shape[1]] = cache["v"]
+        full["len"] = cache["len"]
+        out, fed, nxt = [], [], logits.argmax(-1)
+        for _ in range(steps):
+            fed.append(nxt)
+            step_logits, full = tf.lm_decode_step(model.params(), full, nxt,
+                                                  cfg)
+            out.append(step_logits)
+            nxt = step_logits.argmax(-1)
+    return logits, out, fed
+
+
+def rec_dtype(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def tree_map(fn, tree: dict) -> dict:
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def prefill_decode_vs_forward(params: dict, cfg, toks):
+    """Prefill ``toks[:, :-1]`` into a bf16 cache, decode ``toks[:, -1]``,
+    and run ``lm_forward`` over all of ``toks``: (decode logits, the
+    forward's last logits, how many (row, layer) routings of the last
+    token differ between the two)."""
+    from repro_torch.models import transformer as tf
+
+    b, s = toks.shape[0], toks.shape[1] - 1
+    with torch.inference_mode(), recorded_routes() as routes:
+        _, cache = tf.lm_prefill(params, toks[:, :-1], cfg)
+        kv = tf.init_kv_cache(cfg, b, s + 1, dtype=torch.bfloat16,
+                              device=toks.device)
+        kv["k"][:, :, :s] = cache["k"]
+        kv["v"][:, :, :s] = cache["v"]
+        kv["len"] = cache["len"]
+        del cache
+        n_prefill = len(routes)
+        step, _ = tf.lm_decode_step(params, kv, toks[:, -1], cfg)
+        n_decode = len(routes)
+        fwd, _ = tf.lm_forward(params, toks, cfg)
+    flips = 0
+    for (_, dec), (_, full) in zip(routes[n_prefill:n_decode],
+                                   routes[n_decode:]):
+        last = full.reshape(b, s + 1, -1)[:, -1]
+        flips += int((dec.reshape(b, -1).sort(-1)[0]
+                      != last.sort(-1)[0]).any(-1).sum())
+    return step, fwd[:, -1], flips
+
+
+def lm_card_vs_cpu_phase(dev) -> dict:
+    """Phase 10a: ``granite-moe-1b-a400m`` at full width, ``LM_CHECK_LAYERS``
+    layers, f32 with TF32 off: the same seeded weights on the card and on
+    the CPU, a 1 x ``LM_CHECK_SEQ`` prefill and ``LM_CHECK_STEPS`` greedy
+    decode steps; logits within rtol/atol 1e-3, every routing index and
+    every greedy token equal."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(configs.get(LM_MOE).make_config(),
+                              n_layers=LM_CHECK_LAYERS)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        toks = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab, (1, LM_CHECK_SEQ)))
+        runs = []
+        for where in ("cpu", dev):
+            model = tf.lm_init(LM_SEED, cfg, device="cpu").to(where)
+            with recorded_routes() as routes:
+                runs.append((*greedy_decode(
+                    model, cfg, toks.to(where), LM_CHECK_STEPS,
+                    LM_CHECK_SEQ + LM_CHECK_STEPS), routes))
+            del model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cp, cs, cfed, croutes), (gp, gs, gfed, groutes) = runs
+    err = 0.0
+    for want, got in zip([cp] + cs, [gp] + gs):
+        got = got.cpu()
+        check(torch.allclose(got, want, rtol=1e-3, atol=1e-3),
+              "10a card logits == CPU logits within rtol/atol 1e-3")
+        err = max(err, float((got - want).abs().max()))
+    check(len(croutes) == len(groutes) == LM_CHECK_LAYERS * (
+        1 + LM_CHECK_STEPS), "one routing call per layer and step")
+    check(all(cg == gg and torch.equal(ci, gi.cpu())
+              for (cg, ci), (gg, gi) in zip(croutes, groutes)),
+          "10a every routing index equal on the card and the CPU")
+    check(all(torch.equal(c, g.cpu()) for c, g in zip(cfed, gfed))
+          and torch.equal(cs[-1].argmax(-1), gs[-1].argmax(-1).cpu()),
+          "10a greedy tokens equal on the card and the CPU")
+    print(f"phase 10a LM card vs CPU: ok — {LM_MOE} full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, vocab "
+          f"{cfg.vocab}), {cfg.n_layers} layers, f32, TF32 off: prefill "
+          f"1x{LM_CHECK_SEQ} + {LM_CHECK_STEPS} greedy decode steps; "
+          f"max_abs_err {err} (rtol/atol 1e-3); {len(groutes)} routing "
+          f"calls' indices equal; greedy tokens "
+          f"{[int(t) for t in torch.cat(gfed).cpu()]} equal")
+    return {"max_abs_err": err}
+
+
+def lm_serve_phase(label: str, arch: str, n_layers, dev) -> dict:
+    """Phases 10b/10c: ``arch`` at full width (``n_layers`` layers; None =
+    full depth) in ``param_dtype``: a ``LM_BATCH`` x ``LM_SEQ`` prefill
+    through the registry's serve step (``prefill_32k`` cut to that shape),
+    ``LM_DECODE_STEPS`` greedy decode steps through the ``decode_32k``
+    step; every logit finite; then, with MoE capacity raised to 16, one
+    decode step after a ``LM_CHECK_SEQ``-token prefill equals
+    ``lm_forward`` on the extended sequence within rtol/atol 0.05."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import lm_common
+    from repro_torch.models import transformer as tf
+
+    spec = configs.get(arch)
+    full = spec.make_config()
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    dtype = lm_common.param_dtype(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.lm_init(LM_SEED, cfg, dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    cell = dataclasses.replace(
+        spec.shapes["prefill_32k"],
+        meta={"seq": LM_SEQ, "batch": LM_BATCH, "mode": "prefill"})
+    prefill = spec.step_fn(cfg, cell)
+    decode = spec.step_fn(cfg, spec.shapes["decode_32k"])
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(dev)
+    params = model.params()
+    prefill_ms = []
+    with recorded_routes() as routes:
+        for _ in range(1 + LM_PREFILL_REPS):        # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        n_prefill_routes = len(routes)
+        state = {"params": params,
+                 "cache": model.init_kv_cache(LM_BATCH,
+                                              LM_SEQ + LM_DECODE_STEPS)}
+        with torch.inference_mode():
+            state["cache"]["k"][:, :, :LM_SEQ] = cache["k"]
+            state["cache"]["v"][:, :, :LM_SEQ] = cache["v"]
+            state["cache"]["len"] = cache["len"]
+        del cache
+        finite = bool(torch.isfinite(logits).all())
+        nxt = logits.argmax(-1)
+        decode_ms = []
+        for _ in range(LM_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode(state, {"tokens": nxt})
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            state["cache"] = out["cache"]
+            finite &= bool(torch.isfinite(out["logits"]).all())
+            nxt = out["logits"].argmax(-1)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    check(finite, f"{label} every prefill and decode logit finite")
+    check(int(state["cache"]["len"][0]) == LM_SEQ + LM_DECODE_STEPS,
+          f"{label} the cache holds the prompt and every decoded token")
+    check(not any(launches.values()),
+          f"{label} the LM path launches none of the gene-search kernels")
+    if cfg.moe is not None:
+        groups = cfg.moe.dispatch_groups
+        check(n_prefill_routes == cfg.n_layers * (1 + LM_PREFILL_REPS)
+              and all(g == groups for g, _ in routes[:n_prefill_routes]),
+              f"{label} the {LM_BATCH * LM_SEQ}-token prefill takes the "
+              f"grouped dispatch ({groups} groups)")
+        check(all(g == 1 for g, _ in routes[n_prefill_routes:]),
+              f"{label} the batch-{LM_BATCH} decode takes the global dispatch")
+    del state, out, logits
+
+    # prefill + one decode step == forward on the extended sequence. In
+    # bf16 the two paths' matmuls round differently and, with routing,
+    # flip near-tied top-k choices of the last token in some layers (on
+    # the CPU as on the card), so a routed arch is held to the check in
+    # f32 of the same weights (the reference's test runs f32 weights over
+    # a bf16 cache) and its bf16 gap is printed with its flips
+    ccfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    ctoks = toks[:, :LM_CHECK_SEQ + 1]
+    step, fwd, flips = prefill_decode_vs_forward(params, ccfg, ctoks)
+    native = {"dtype": rec_dtype(dtype),
+              "max_abs_err": float((step - fwd).abs().max())}
+    if cfg.moe is not None:
+        native["routing_flips"] = flips
+    checked = native
+    if cfg.moe is not None:
+        del step, fwd
+        f32 = tree_map(lambda p: p.float(), params)
+        step, fwd, f32_flips = prefill_decode_vs_forward(f32, ccfg, ctoks)
+        del f32
+        checked = {"dtype": "float32", "max_abs_err": float(
+            (step - fwd).abs().max()), "routing_flips": f32_flips}
+    check(bool(torch.isfinite(step).all()) and torch.allclose(
+        step, fwd, rtol=0.05, atol=0.05),
+          f"{label} prefill + one decode step == lm_forward on the extended "
+          f"sequence within rtol/atol 0.05 ({checked})")
+    del model, params, step, fwd
+
+    prefill_s = min(prefill_ms[1:]) / 1e3
+    flops = lm_common.lm_model_flops(cfg, cell)
+    dec_ms = float(np.mean(decode_ms[1:]))
+    rec = {
+        "arch": arch, "layers": f"{cfg.n_layers} of {full.n_layers}",
+        "dtype": rec_dtype(dtype),
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "init_s": round(init_s, 3),
+        "prefill_ms": [round(x, 3) for x in prefill_ms],
+        "prefill_tokens_per_s": round(LM_BATCH * LM_SEQ / prefill_s, 1),
+        "prefill_model_flops": flops,
+        "prefill_mfu_bf16_peak": round(flops / prefill_s / BF16_PEAK_FLOPS, 4),
+        "decode_ms_first": round(decode_ms[0], 3),
+        "decode_ms_per_step": round(dec_ms, 3),
+        "decode_tokens_per_s": round(LM_BATCH * 1e3 / dec_ms, 1),
+        "consistency_checked": checked,
+        "consistency_in_param_dtype": native,
+        "max_memory_allocated": peak,
+    }
+    print(f"phase {label} LM serving: ok — {arch} full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+          f"vocab {cfg.vocab}), depth {rec['layers']} layers, "
+          f"{rec['dtype']}; prefill {LM_BATCH}x{LM_SEQ} and "
+          f"{LM_DECODE_STEPS} decode steps at batch {LM_BATCH}, every logit "
+          f"finite; prefill + decode == forward within 0.05 in "
+          f"{checked['dtype']} (max_abs_err {checked['max_abs_err']}); "
+          + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--fabric-gateway"]:
         fabric_gateway(sys.argv[2])     # phase 8's gateway process
@@ -2698,6 +3001,10 @@ def main() -> None:
     paths.append(rambo_cache_phase(cfg, engine_archive, rambo))
     paths.append(rambo_shards_phase(cfg, engine_archive, rambo))
     del rambo
+    torch.cuda.empty_cache()        # phase 10 runs on a card 9b has freed
+    lm_card_vs_cpu_phase(dev)
+    lm_serve_phase("10b", LM_MOE, None, dev)
+    lm_serve_phase("10c", LM_DENSE, LM_DENSE_LAYERS, dev)
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

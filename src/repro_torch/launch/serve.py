@@ -24,6 +24,7 @@ import time
 
 import numpy as np
 
+from repro_torch import configs
 from repro_torch.configs import idl_genesearch
 from repro_torch.data import genome
 from repro_torch.index import BitSlicedIndex
@@ -51,16 +52,18 @@ def main(argv=None) -> None:
                          "a Chrome trace_event file next to it")
     args = ap.parse_args(argv)
 
-    if args.arch != idl_genesearch.NAME:
-        raise SystemExit(f"serve launcher drives {idl_genesearch.NAME!r} "
-                         f"only, got {args.arch!r}")
+    arch = configs.get(args.arch)
+    if arch.family != "genesearch":
+        # the LM archs are served through their registry step_fn
+        raise SystemExit(f"serve launcher drives the genesearch family; "
+                         f"{args.arch!r} is {arch.family!r} (its serve "
+                         f"steps are the registry's step_fn)")
     args.files = max(32, -(-args.files // 32) * 32)  # bit-sliced: 32/word
     if args.shards:
         # file shards split on 32-file word columns: one column per shard
         # is the floor
         args.files = max(args.files, 32 * args.shards)
-    cfg = dataclasses.replace(idl_genesearch.smoke_config(),
-                              n_files=args.files)
+    cfg = dataclasses.replace(arch.make_smoke_config(), n_files=args.files)
 
     archive = genome.synth_archive(n_files=args.files, genome_len=2_000,
                                    seed=11)

@@ -1,0 +1,291 @@
+"""Common neural building blocks — plain functions over parameter dicts.
+
+Port of :mod:`repro.models.layers`. Parameters are nested dicts of tensors
+under the reference's keys (``wq``, ``wk``, ``wv``, ``wo``, ``wi``,
+``wg``); every apply function takes ``(params, inputs, cfg)``. The compute
+dtype is the input's; weights are stored f32 (or bf16 under
+``param_dtype``) and cast on use. The reference's sharding constraints
+have no counterpart on one card and are dropped.
+
+Initialisers draw from a ``torch.Generator`` on the target device, so the
+same seed gives the same weights on one device type (the values differ
+from the reference's ``jax.random``; :mod:`repro_torch.models.convert`
+carries a reference parameter tree across instead).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = dict
+
+NEG_INF = -1e30     # the reference's mask fill
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, *, lead: tuple = ()) -> torch.Tensor:
+    """(``*lead``, d_in, d_out) normal weights scaled by 1/sqrt(d_in), drawn
+    in f32 on ``gen``'s device and cast to ``dtype``."""
+    w = torch.randn((*lead, d_in, d_out), generator=gen,
+                    device=gen.device, dtype=torch.float32)
+    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+# --------------------------------------------------------------------------
+# activations
+# --------------------------------------------------------------------------
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":      # jax.nn.gelu's default is the tanh form
+        return F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu(x)
+    if name == "relu":
+        return F.relu(x)
+    if name == "relu2":     # squared ReLU (Primer / Nemotron-4)
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# --------------------------------------------------------------------------
+# rotary position embedding
+# --------------------------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float = 10000.0) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float32) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: broadcastable to (..., seq)."""
+    d_head = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(d_head, theta)).to(x.device)
+    angles = positions[..., :, None, None].float() * freqs   # (..., S, 1, D/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# grouped-query attention (full, causal) + KV-cache decode
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    rope_theta: float = 10000.0
+    causal: bool = True
+    # sliding-window attention (beyond-paper long-context option); 0 = full
+    window: int = 0
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32, *,
+              lead: tuple = ()) -> Params:
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.d_head, dtype,
+                         lead=lead),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.d_head, dtype,
+                         lead=lead),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.d_head, dtype,
+                         lead=lead),
+        "wo": dense_init(gen, cfg.n_heads * cfg.d_head, cfg.d_model, dtype,
+                         lead=lead),
+    }
+
+
+def _qkv(params: Params, x: torch.Tensor, cfg: AttnConfig):
+    b, s, _ = x.shape
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = (x @ params["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = (x @ params["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    return q, k, v
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+          cfg: AttnConfig) -> torch.Tensor:
+    """(len(q_pos), len(k_pos)) bool: which keys each query may attend."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if cfg.causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if cfg.window:
+        mask &= q_pos[:, None] - k_pos[None, :] < cfg.window
+    return mask
+
+
+def _scores_to_out(qg, k, v, mask, cfg: AttnConfig, dt) -> torch.Tensor:
+    """qg (B, q, h, g, d) against k, v (B, S, h, d) under a (q, S) or
+    (B, 1, 1, 1, S)-broadcastable mask -> (B, q, h, g, d)."""
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = scores * (1.0 / math.sqrt(cfg.d_head))
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    if v.dtype != dt:       # jnp promotes a bf16 cache against f32 probs
+        v = v.to(dt)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+
+
+def attend(params: Params, x: torch.Tensor, cfg: AttnConfig,
+           positions: Optional[torch.Tensor] = None, chunk: int = 0):
+    """Causal GQA over ``x`` that also returns the keys (post-RoPE) and
+    values it attended: ``(out (B, S, d_model), k, v)``. ``chunk`` > 0
+    runs the query-chunked form when it divides S (else the full one)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, s, cfg.n_kv_heads, groups, cfg.d_head)
+    kk = torch.arange(s, device=x.device)
+    if chunk and s % chunk == 0:
+        # the flash-attention outer loop: never the (S, S) score matrix,
+        # one (B, H, chunk, S) buffer at a time (the reference's lax.map)
+        out = torch.cat([
+            _scores_to_out(qg[:, i:i + chunk], k, v,
+                           _mask(kk[i:i + chunk], kk, cfg), cfg, dt)
+            for i in range(0, s, chunk)], dim=1)
+    else:
+        out = _scores_to_out(qg, k, v, _mask(kk, kk, cfg), cfg, dt)
+    out = out.reshape(b, s, -1)
+    return out @ params["wo"].to(dt), k, v
+
+
+def attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full (optionally causal / sliding-window) GQA attention.
+
+    x: (B, S, d_model) -> (B, S, d_model).
+    """
+    return attend(params, x, cfg, positions)[0]
+
+
+def attention_chunked(params: Params, x: torch.Tensor, cfg: AttnConfig,
+                      positions: Optional[torch.Tensor] = None,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Query-chunked causal GQA (flash-attention outer loop).
+
+    Never materializes the (S, S) score matrix — per chunk the live buffer
+    is (B, H, chunk, S): the long-prefill path. Falls back to
+    :func:`attention` when ``chunk`` does not divide S, as the reference
+    does. Numerics identical to :func:`attention` (tested).
+    """
+    return attend(params, x, cfg, positions, chunk=chunk)[0]
+
+
+def attention_decode(
+    params: Params, x: torch.Tensor, cfg: AttnConfig,
+    k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a KV cache.
+
+    x: (B, 1, d_model); caches: (B, S_max, n_kv, d_head); cache_len: (B,)
+    Returns (out (B, 1, d_model), k_cache, v_cache). The new token's key
+    and value are written INTO the caches at ``cache_len`` (the reference
+    returns fresh arrays; the bits are the same): a ``cache_len`` at or
+    past S_max writes nothing, as the reference's one-hot blend does.
+    """
+    b = x.shape[0]
+    s_max = k_cache.shape[1]
+    dt = x.dtype
+    positions = cache_len[:, None]                       # (B, 1)
+    q, k_new, v_new = _qkv(params, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    # the cache keeps ITS dtype (bf16 in production even under f32 params)
+    slot = cache_len.long().clamp(max=s_max - 1)
+    idx = slot.view(b, 1, 1, 1).expand(b, 1, cfg.n_kv_heads, cfg.d_head)
+    inside = (cache_len < s_max).view(b, 1, 1, 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        old = cache.gather(1, idx)
+        cache.scatter_(1, idx, torch.where(inside, new.to(cache.dtype), old))
+    groups = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, 1, cfg.n_kv_heads, groups, cfg.d_head)
+    k = k_cache if k_cache.dtype == dt else k_cache.to(dt)
+    valid = (torch.arange(s_max, device=x.device)[None, :]
+             <= cache_len[:, None])                      # (B, S_max)
+    out = _scores_to_out(qg, k, v_cache, valid[:, None, None, None, :], cfg,
+                         dt).reshape(b, 1, -1)
+    return out @ params["wo"].to(dt), k_cache, v_cache
+
+
+# --------------------------------------------------------------------------
+# MLP (dense FFN)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MlpConfig:
+    d_model: int
+    d_ff: int
+    act: str = "silu"     # "silu" => SwiGLU (gated); others => plain 2-layer
+    gated: bool = True
+
+
+def mlp_init(gen: torch.Generator, cfg: MlpConfig, dtype=torch.float32, *,
+             lead: tuple = ()) -> Params:
+    p = {
+        "wi": dense_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead),
+        "wo": dense_init(gen, cfg.d_ff, cfg.d_model, dtype, lead=lead),
+    }
+    if cfg.gated:
+        p["wg"] = dense_init(gen, cfg.d_model, cfg.d_ff, dtype, lead=lead)
+    return p
+
+
+def mlp(params: Params, x: torch.Tensor, cfg: MlpConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ params["wi"].to(dt)
+    if cfg.gated:
+        g = x @ params["wg"].to(dt)
+        h = activation(cfg.act, g) * h
+    else:
+        h = activation(cfg.act, h)
+    return h @ params["wo"].to(dt)

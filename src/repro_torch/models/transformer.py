@@ -1,0 +1,311 @@
+"""Decoder-only transformer LM: dense or MoE, GQA, RoPE — the serving path.
+
+Port of :mod:`repro.models.transformer` for the five LM archs (arctic-480b,
+granite-moe-1b, granite-20b, nemotron-4-340b, internlm2-20b): the config,
+init, forward, prefill (filling a KV cache) and one-token decode. Training
+(``lm_loss``) is not ported yet.
+
+Parameters keep the reference's pytree: a nested dict whose per-layer
+leaves are stacked along a leading ``(n_layers, ...)`` axis, so carrying
+the reference's weights across is a copy
+(:func:`repro_torch.models.convert.params_from_jax`). A Python loop over
+the layers takes the place of the reference's ``lax.scan``; its remat and
+sharding constraints exist only for XLA and are dropped.
+:class:`TransformerLM` holds such a tree as an ``nn.Module`` (its
+``state_dict`` keys are the reference's paths); the functions take the
+plain dict (``model.params()``), as the reference's do.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers, moe as moe_mod
+from repro_torch.models.layers import Params
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None
+    act: str = "silu"
+    gated_mlp: bool = True
+    moe: Optional[moe_mod.MoeConfig] = None
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # sliding-window attention (beyond-paper option for long context); 0=full
+    attn_window: int = 0
+    # query-chunked (flash-style) attention; 0 = full scores. Enabled for
+    # the 32k prefill shapes where full scores exceed device memory.
+    attn_chunk: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def attn_cfg(self, window: Optional[int] = None) -> layers.AttnConfig:
+        return layers.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, d_head=self.head_dim,
+            rope_theta=self.rope_theta,
+            window=self.attn_window if window is None else window,
+        )
+
+    def mlp_cfg(self) -> layers.MlpConfig:
+        return layers.MlpConfig(self.d_model, self.d_ff, self.act,
+                                self.gated_mlp)
+
+    def param_count(self) -> int:
+        """Total parameters (N for MODEL_FLOPS = 6·N·D)."""
+        d, dh = self.d_model, self.head_dim
+        attn = d * dh * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.moe is not None:
+            f = self.moe.d_ff
+            per_e = d * f * (3 if self.moe.gated else 2)
+            ffn = self.moe.n_experts * per_e + d * self.moe.n_experts
+            if self.moe.residual_d_ff:
+                ffn += d * self.moe.residual_d_ff * (3 if self.gated_mlp else 2)
+        else:
+            ffn = d * self.d_ff * (3 if self.gated_mlp else 2)
+        per_layer = attn + ffn + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        """Activated parameters per token (N_active for MoE)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        f = self.moe.d_ff
+        per_e = d * f * (3 if self.moe.gated else 2)
+        dense_like = dataclasses.replace(self, moe=None, d_ff=0,
+                                         gated_mlp=False)
+        base = dense_like.param_count()
+        act_ffn = self.moe.top_k * per_e + d * self.moe.n_experts
+        if self.moe.residual_d_ff:
+            act_ffn += d * self.moe.residual_d_ff * (3 if self.gated_mlp else 2)
+        return base + self.n_layers * act_ffn
+
+
+# --------------------------------------------------------------------------
+# the module
+# --------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors registered as (frozen) parameters under its
+    own keys; :meth:`params` gives the dict back."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+
+    def params(self) -> Params:
+        out: Params = dict(self._parameters)
+        for key, sub in self._modules.items():
+            out[key] = sub.params()
+        return out
+
+
+class TransformerLM(ParamTree):
+    """The LM's parameters (``embed``, ``layers``, ``ln_f`` and, untied,
+    ``unembed``) with its config, and the serving entry points as
+    methods."""
+
+    def __init__(self, cfg: LMConfig, params: Params):
+        super().__init__(params)
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.ln_f.dtype
+
+    def forward(self, tokens: torch.Tensor):
+        return lm_forward(self.params(), tokens, self.cfg)
+
+    def prefill(self, tokens: torch.Tensor):
+        return lm_prefill(self.params(), tokens, self.cfg)
+
+    def decode_step(self, cache: Params, tokens: torch.Tensor):
+        return lm_decode_step(self.params(), cache, tokens, self.cfg)
+
+    def init_kv_cache(self, batch: int, max_len: int,
+                      dtype=torch.bfloat16) -> Params:
+        return init_kv_cache(self.cfg, batch, max_len, dtype=dtype,
+                             device=self.device)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _layers_init(gen: torch.Generator, cfg: LMConfig, dtype) -> Params:
+    """Every layer's parameters, stacked along a leading n_layers axis."""
+    n, d = cfg.n_layers, cfg.d_model
+    p: Params = {
+        "ln1": torch.ones((n, d), dtype=dtype, device=gen.device),
+        "ln2": torch.ones((n, d), dtype=dtype, device=gen.device),
+        "attn": layers.attn_init(gen, cfg.attn_cfg(), dtype, lead=(n,)),
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_init(gen, cfg.moe, dtype, lead=(n,))
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg.mlp_cfg(), dtype, lead=(n,))
+    return p
+
+
+def lm_init(seed: int, cfg: LMConfig, dtype=torch.float32,
+            device="cuda") -> TransformerLM:
+    """Random weights drawn on ``device`` from a generator seeded with
+    ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    p: Params = {
+        "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model, dtype),
+        "layers": _layers_init(gen, cfg, dtype),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab, dtype)
+    return TransformerLM(cfg, p)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s slice (views) of the stacked layer tree."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _block(cfg: LMConfig, lp: Params, x: torch.Tensor,
+           positions: torch.Tensor):
+    """One layer over the whole sequence: ``(x, aux, k, v)`` with the
+    layer's post-RoPE keys and its values (the prefill's cache)."""
+    h = layers.rmsnorm(x, lp["ln1"])
+    a, k, v = layers.attend(lp["attn"], h, cfg.attn_cfg(), positions,
+                            chunk=cfg.attn_chunk)
+    x = x + a
+    h = layers.rmsnorm(x, lp["ln2"])
+    if cfg.moe is not None:
+        y, aux = moe_mod.moe(lp["moe"], h, cfg.moe)
+    else:
+        y, aux = layers.mlp(lp["mlp"], h, cfg.mlp_cfg()), 0.0
+    return x + y, aux, k, v
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens].to(params["ln_f"].dtype)
+
+
+def lm_hidden(params: Params, tokens: torch.Tensor,
+              cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (final hidden (B, S, d), moe aux loss)."""
+    x = _embed(params, tokens)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a, _, _ = _block(cfg, layer_params(params["layers"], i), x,
+                            positions)
+        aux = aux + a
+    return layers.rmsnorm(x, params["ln_f"]), aux
+
+
+def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if "unembed" in params:
+        return x @ params["unembed"].to(dt)
+    return x @ params["embed"].T.to(dt)
+
+
+def lm_forward(params: Params, tokens: torch.Tensor,
+               cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (logits (B, S, V) f32, aux loss)."""
+    x, aux = lm_hidden(params, tokens, cfg)
+    return _unembed(params, x).float(), aux
+
+
+# --------------------------------------------------------------------------
+# prefill (serve): fill the KV cache for a prompt, return last-token logits
+# --------------------------------------------------------------------------
+
+def lm_prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig):
+    """tokens (B, S) -> (last-position logits (B, V) f32, kv cache dict).
+
+    The cache stores POST-RoPE keys (``attention_decode`` rotates only the
+    incoming token and scores against the cache as-is), in bf16 whatever
+    the parameters' dtype, as the reference's does."""
+    x = _embed(params, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    vs = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    for i in range(cfg.n_layers):
+        x, _, ks[i], vs[i] = _block(cfg, layer_params(params["layers"], i),
+                                    x, positions)
+    x = layers.rmsnorm(x, params["ln_f"])
+    logits = _unembed(params, x[:, -1, :]).float()
+    cache = {"k": ks, "v": vs,
+             "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    return logits, cache
+
+
+# --------------------------------------------------------------------------
+# decode (serve_step): one token against a per-layer KV cache
+# --------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
+                  dtype=torch.float32, device="cuda") -> Params:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def lm_decode_step(params: Params, cache: Params, tokens: torch.Tensor,
+                   cfg: LMConfig) -> tuple[torch.Tensor, Params]:
+    """tokens (B,) int -> (logits (B, V) f32, updated cache).
+
+    The new token's keys and values are written into ``cache``'s tensors
+    in place; the returned cache holds them and ``len + 1``."""
+    x = _embed(params, tokens)[:, None, :]                  # (B, 1, d)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = layers.rmsnorm(x, lp["ln1"])
+        a, _, _ = layers.attention_decode(
+            lp["attn"], h, cfg.attn_cfg(), cache["k"][i], cache["v"][i],
+            cache["len"])
+        x = x + a
+        h = layers.rmsnorm(x, lp["ln2"])
+        if cfg.moe is not None:
+            y, _ = moe_mod.moe(lp["moe"], h, cfg.moe)
+        else:
+            y = layers.mlp(lp["mlp"], h, cfg.mlp_cfg())
+        x = x + y
+    x = layers.rmsnorm(x, params["ln_f"])
+    logits = _unembed(params, x[:, 0, :])
+    new_cache = {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
+    return logits.float(), new_cache

@@ -229,9 +229,20 @@ def test_launcher_fleet_recall_matches_reference(flags, line, tmp_path):
 def test_port_imports_neither_jax_nor_reference():
     mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")]
-    code = ("import sys, importlib\n"
+    examples = sorted(
+        os.path.join(REPO, "examples", f)
+        for f in os.listdir(os.path.join(REPO, "examples"))
+        if f.startswith("torch_") and f.endswith(".py"))
+    assert len(examples) == 3, examples
+    assert {"repro_torch.models.transformer", "repro_torch.core.theory",
+            "repro_torch.core.cache_model", "repro_torch.configs.lm_common",
+            "repro_torch.models.convert"} <= set(mods)
+    code = ("import sys, importlib, importlib.util\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
+            f"for i, path in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n"
@@ -243,7 +254,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert "clean" in p.stdout
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)"
                          r"|from repro\b(?!_torch))", re.M)
-    sources = [os.path.join(REPO, "chip_smoke.py")] + [
+    sources = [os.path.join(REPO, "chip_smoke.py")] + examples + [
         os.path.join(root, f)
         for root, _, files in os.walk(os.path.join(SRC, "repro_torch"))
         for f in files if f.endswith(".py")]
