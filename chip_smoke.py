@@ -118,13 +118,36 @@ reference package) and runs these phases, printing one line each:
    10c ``granite-20b`` at full width, 4 of its 52 layers, bf16, the same
    work and check (in bf16); prefill and decode times, decode tokens a
    second, the prefill's model-FLOP share of 989 TFLOP/s and the peak
-   device memory.
+   device memory;
+11. the LM family's training path, plain PyTorch (autograd, remat through
+   ``torch.utils.checkpoint``, chunked loss, AdamW; no kernel of
+   ``csrc/``: the path must launch none): 11a ``granite-moe-1b-a400m`` at
+   full width cut to 2 layers, f32 with TF32 off, remat on, a 2 x 128
+   batch of the ``idl`` dedup pipeline: ``lm_loss`` and its gradients on
+   the card against the CPU (loss rtol 1e-3, each gradient leaf within
+   1e-3 of its max |g|, every routing index equal), 3 AdamW steps through
+   ``make_train_step`` on both (losses rtol 1e-3, parameters within the
+   bound two AdamW runs whose gradients differ by rounding may reach:
+   ``adamw_bound``), and ``loop.run`` for 8 steps with a checkpoint every
+   4, stopped at 4 and resumed to 8, against an uninterrupted run (losses
+   rtol 1e-3, parameters within ``adamw_bound``: the MoE combine's
+   ``scatter_add_`` adds in no fixed order on the card); 11b the same arch
+   at full depth with bf16 parameters and f32 AdamW moments, remat on,
+   ``train_4k`` cut to 4 x 4096 (8 loss chunks), batches from the dedup
+   pipeline at vocab 49155: 6 steps through ``loop.run`` (every loss
+   finite), the median warm step, tokens a second, the model-FLOP share
+   of 989 TFLOP/s, the peak device memory, the device's busy share and top
+   operators from ``torch.profiler`` over the last step, then the final
+   train state saved as one checkpoint (13.35 GB) and restored, both
+   timed, equal bit for bit; 11c ``granite-20b`` at full width, 4 of 52
+   layers, 2 x 4096, the same numbers without a checkpoint.
 
 The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
-6, 7c, 9b, 10 (after 9b has freed the card). Phases 8 and 9 print their temp root's free
-bytes before they save (8 and 9a write 8 GiB snapshots; too little room
-fails the run) and remove their snapshots, and print their wall seconds.
+6, 7c, 9b, 10 (after 9b has freed the card), 11. Phases 8, 9, 11a and
+11b print their temp root's free bytes before they save (8 and 9a write
+8 GiB snapshots, 11b a 13.35 GB checkpoint; too little room fails the
+run) and remove them, and print their wall seconds.
 
 Every path phase zeroes the launch counters just before it and reads them
 just after; each kernel the path runs must have launched (phases 8 and 9
@@ -2950,6 +2973,363 @@ def lm_serve_phase(label: str, arch: str, n_layers, dev) -> dict:
     return rec
 
 
+# -- phase 11: the LM family's training path --------------------------------
+
+TRAIN_CHECK_BATCH = 2                # 11a: batch x seq, f32, TF32 off
+TRAIN_CHECK_SEQ = 128
+TRAIN_CHECK_STEPS = 3                # 11a's AdamW steps, card and CPU
+TRAIN_LOOP_STEPS = 8                 # 11a's loop, resumed from step 4
+TRAIN_LOOP_CKPT_EVERY = 4
+TRAIN_SEQ = 4096                     # train_4k's sequence
+TRAIN_MOE_BATCH = 4                  # 11b: train_4k cut from 256 x 4096
+TRAIN_DENSE_BATCH = 2                # 11c
+TRAIN_STEPS = 6                      # 11b/11c: 0 cold, 1-4 timed, 5 profiled
+TRAIN_TOP_OPS = 8
+
+
+def tree_leaves(tree: dict) -> list:
+    from repro_torch.train import optimizer as opt_mod
+
+    return opt_mod.tree_leaves(tree)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def adamw_bound(lr: float, steps: int) -> float:
+    """How far two runs of ``steps`` AdamW steps (b1 0.9, b2 0.95) may put
+    one weight apart when their gradients differ by rounding only: a
+    gradient within rounding of zero may take opposite signs, and each
+    step moves a weight by at most lr * |m_hat / sqrt(v_hat)| (<= 1.008
+    for up to 8 steps, Cauchy-Schwarz), so 2 * lr * 1.008 a step, plus
+    1e-5 of f32 rounding."""
+    return 2 * lr * 1.008 * steps + 1e-5
+
+
+def lm_train_pipeline(cfg, batch: int, seq: int, dev):
+    """An ``idl``-dedup ``LMPipeline`` at ``cfg``'s vocab and its
+    ``next_batch`` as tensors on ``dev``."""
+    from repro_torch.data import lm_pipeline
+
+    pipe = lm_pipeline.LMPipeline(lm_pipeline.LMPipelineConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, dedup=True,
+        dedup_scheme="idl"))
+
+    def next_batch():
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.next_batch().items()}
+    return pipe, next_batch
+
+
+def lm_train_card_vs_cpu_phase(dev) -> dict:
+    """Phase 11a: ``granite-moe-1b-a400m`` at full width, ``LM_CHECK_LAYERS``
+    layers, f32 with TF32 off, remat on, batch ``TRAIN_CHECK_BATCH`` x
+    ``TRAIN_CHECK_SEQ`` from the dedup pipeline: ``lm_loss`` and its
+    gradients on the card and on the CPU (loss rtol 1e-3, each gradient
+    leaf within 1e-3 of its max |g|, every routing index equal),
+    ``TRAIN_CHECK_STEPS`` AdamW steps through ``make_train_step`` (losses
+    rtol 1e-3, parameters within ``adamw_bound``), then ``loop.run`` for
+    ``TRAIN_LOOP_STEPS`` steps with a checkpoint every
+    ``TRAIN_LOOP_CKPT_EVERY``, stopped at 4 and resumed to 8 in a fresh
+    loop: its losses and final parameters against an uninterrupted run's
+    (losses rtol 1e-3, parameters within ``adamw_bound`` over 8 steps: the
+    MoE combine's ``scatter_add_`` adds in no fixed order on the card)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import lm_common
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import loop, train_state as ts
+
+    t_phase = time.perf_counter()
+    spec = configs.get(LM_MOE)
+    cfg = dataclasses.replace(spec.make_config(), n_layers=LM_CHECK_LAYERS)
+    check(cfg.remat, "11a trains with remat on")
+    cell = dataclasses.replace(spec.shapes["train_4k"], meta={
+        "seq": TRAIN_CHECK_SEQ, "batch": TRAIN_CHECK_BATCH})
+    nchunks = lm_common.loss_chunks_for(cell)
+
+    def loss_fn(p, b):
+        return tf.lm_loss(p, b, cfg, loss_chunks=nchunks)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    try:
+        params = {"cpu": tf.lm_init(LM_SEED, cfg, device="cpu").params()}
+        params[dev] = tree_map(lambda p: p.to(dev), params["cpu"])
+        pipe, _ = lm_train_pipeline(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                                    "cpu")
+        batches = [{k: torch.from_numpy(v) for k, v in
+                    pipe.next_batch().items()} for _ in range(
+            1 + TRAIN_CHECK_STEPS)]
+        grads, routes = {}, {}
+        for where in ("cpu", dev):
+            with recorded_routes() as seen:
+                loss, metrics, g = ts.value_and_grad(
+                    loss_fn, params[where],
+                    {k: v.to(where) for k, v in batches[0].items()})
+            grads[where] = (loss.cpu(), tree_map(lambda x: x.cpu(), g))
+            routes[where] = [(n, i.cpu()) for n, i in seen]
+        (closs, cgrad), (gloss, ggrad) = grads["cpu"], grads[dev]
+        check(torch.allclose(gloss, closs, rtol=1e-3, atol=0),
+              f"11a loss on the card == CPU within rtol 1e-3 "
+              f"({float(gloss)} vs {float(closs)})")
+        grad_err = 0.0
+        for name, c, g in zip(ckpt_keys(cgrad), tree_leaves(cgrad),
+                              tree_leaves(ggrad)):
+            scale = max(float(c.abs().max()), 1e-30)
+            rel = float((g - c).abs().max()) / scale
+            check(rel <= 1e-3, f"11a gradient {name} on the card within 1e-3 "
+                  f"of its max |g| ({rel})")
+            grad_err = max(grad_err, rel)
+        check(len(routes["cpu"]) == len(routes[dev]) > 0 and all(
+            n == m and torch.equal(a, b) for (n, a), (m, b) in zip(
+                routes["cpu"], routes[dev])),
+              "11a every routing index equal on the card and the CPU")
+
+        opt = lm_common.choose_optimizer(cfg)
+        lr = 3e-4                       # choose_optimizer's AdamW below 30e9
+        step = ts.make_train_step(loss_fn, opt)
+        states, losses = {}, {}
+        for where in ("cpu", dev):
+            state = ts.TrainState.create(
+                tree_map(torch.clone, params[where]), opt)
+            losses[where] = []
+            for b in batches[1:]:
+                state, m = step(state, {k: v.to(where) for k, v in b.items()})
+                losses[where].append(float(m["loss"]))
+            states[where] = state
+        check(np.allclose(losses[dev], losses["cpu"], rtol=1e-3, atol=0),
+              f"11a {TRAIN_CHECK_STEPS} AdamW steps' losses on the card == "
+              f"CPU within rtol 1e-3 ({losses[dev]} vs {losses['cpu']})")
+        step_err = max(max_abs_err(g.cpu(), c) for c, g in zip(
+            tree_leaves(states["cpu"].params), tree_leaves(states[dev].params)))
+        check(step_err <= adamw_bound(lr, TRAIN_CHECK_STEPS),
+              f"11a parameters after {TRAIN_CHECK_STEPS} AdamW steps within "
+              f"{adamw_bound(lr, TRAIN_CHECK_STEPS)} ({step_err})")
+        del states, grads, cgrad, ggrad
+
+        work = scratch_dir("11a", 4 << 30)
+        try:
+            runs = []
+            for total, ckpt_dir in ((TRAIN_LOOP_STEPS, None),
+                                    (TRAIN_LOOP_CKPT_EVERY, work),
+                                    (TRAIN_LOOP_STEPS, work)):
+                pipe, next_batch = lm_train_pipeline(
+                    cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, dev)
+                runs.append(loop.run(
+                    loss_fn, params[dev], opt, next_batch, loop.LoopConfig(
+                        total_steps=total, ckpt_every=TRAIN_LOOP_CKPT_EVERY,
+                        ckpt_dir=ckpt_dir, log_every=1),
+                    pipeline_state=pipe.state_dict,
+                    restore_pipeline=pipe.load_state_dict))
+        finally:
+            remove_dir(work)
+        whole, first, resumed = runs
+        check(first.resumed_from is None and int(first.state.step) ==
+              TRAIN_LOOP_CKPT_EVERY and resumed.resumed_from ==
+              TRAIN_LOOP_CKPT_EVERY and int(resumed.state.step) ==
+              TRAIN_LOOP_STEPS, "11a the second loop resumed from step "
+              f"{TRAIN_LOOP_CKPT_EVERY}")
+        want = [h["loss"] for h in whole.history[TRAIN_LOOP_CKPT_EVERY:]]
+        got = [h["loss"] for h in resumed.history]
+        check(len(got) == len(want) and np.allclose(got, want, rtol=1e-3,
+                                                    atol=0),
+              f"11a resumed losses == uninterrupted within rtol 1e-3 "
+              f"({got} vs {want})")
+        resume_err = max(max_abs_err(a, b) for a, b in zip(
+            tree_leaves(whole.state.params), tree_leaves(resumed.state.params)))
+        check(resume_err <= adamw_bound(lr, TRAIN_LOOP_STEPS),
+              f"11a resumed parameters within {adamw_bound(lr, TRAIN_LOOP_STEPS)}"
+              f" of the uninterrupted run's ({resume_err})")
+        losses_all = [h["loss"] for h in whole.history]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = read_launches()
+    check(not any(launches.values()),
+          "11a the training path launches none of the gene-search kernels")
+    rec = {"loss_rel_err": abs(float(gloss) - float(closs)) / abs(float(closs)),
+           "grad_max_rel_err": grad_err, "routing_calls": len(routes[dev]),
+           "step_losses_card": losses[dev], "step_losses_cpu": losses["cpu"],
+           "params_max_abs_err_after_steps": step_err,
+           "loop_losses": losses_all,
+           "resumed_loss_max_abs_err": max(abs(a - b) for a, b in zip(got, want)),
+           "resumed_params_max_abs_err": resume_err,
+           "wall_s": round(time.perf_counter() - t_phase, 3)}
+    print(f"phase 11a LM training card vs CPU: ok — {LM_MOE} full width, "
+          f"{cfg.n_layers} layers, f32, TF32 off, remat, batch "
+          f"{TRAIN_CHECK_BATCH}x{TRAIN_CHECK_SEQ}, {nchunks} loss chunks: "
+          f"loss and gradients (1e-3), {TRAIN_CHECK_STEPS} AdamW steps "
+          f"(parameters within {adamw_bound(lr, TRAIN_CHECK_STEPS)}), a "
+          f"{TRAIN_LOOP_STEPS}-step loop resumed from step "
+          f"{TRAIN_LOOP_CKPT_EVERY} (parameters within "
+          f"{adamw_bound(lr, TRAIN_LOOP_STEPS)}); " + json.dumps(rec))
+    return rec
+
+
+def ckpt_keys(tree: dict) -> list:
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    return list(ckpt_mod._flatten_with_paths(tree))
+
+
+def profiled_step(step_fn, state, batch) -> tuple:
+    """One train step under ``torch.profiler``: (its output, wall ms,
+    device busy ms (the kernels' time, the profiler table's "Self CUDA
+    time total"), kernels run, and the top ``TRAIN_TOP_OPS`` operators by
+    the device time of the kernels they launched, as [name, ms, calls])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    ops = [e for e in ev if e.device_type == DeviceType.CPU]
+    top = sorted(ops, key=dev_us, reverse=True)[:TRAIN_TOP_OPS]
+    return (out, wall, sum(dev_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels),
+            [[e.key[:60], round(dev_us(e) / 1e3, 3), e.count] for e in top])
+
+
+def lm_train_phase(label: str, arch: str, n_layers, batch: int, dev,
+                   checkpoint: bool) -> dict:
+    """Phases 11b/11c: ``arch`` at full width (``n_layers`` layers; None =
+    full depth) in ``param_dtype`` with f32 AdamW moments
+    (``choose_optimizer``) and remat on, ``train_4k`` cut to ``batch`` x
+    ``TRAIN_SEQ`` (``loss_chunks_for`` the cut cell), batches from an
+    ``idl``-dedup ``LMPipeline``: ``TRAIN_STEPS`` steps through
+    ``loop.run`` (every loss finite), the median warm step, tokens a
+    second, the model-FLOP share of 989 TFLOP/s, the peak device memory
+    and one profiled warm step; with ``checkpoint``, the final state saved
+    and restored through ``CheckpointManager`` (bit for bit)."""
+    import dataclasses
+    import os
+
+    from repro_torch import configs
+    from repro_torch.configs import lm_common
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt_mod, loop
+
+    t_phase = time.perf_counter()
+    spec = configs.get(arch)
+    full = spec.make_config()
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
+    check(cfg.remat, f"{label} trains with remat on")
+    dtype = lm_common.param_dtype(cfg)
+    cell = dataclasses.replace(spec.shapes["train_4k"], meta={
+        "seq": TRAIN_SEQ, "batch": batch})
+    nchunks = lm_common.loss_chunks_for(cell)
+    opt = lm_common.choose_optimizer(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.lm_init(LM_SEED, cfg, dtype=dtype, device=dev).params()
+    pipe, next_batch = lm_train_pipeline(cfg, batch, TRAIN_SEQ, dev)
+    step_ms, prof = [], {}
+
+    def timed(step_fn):
+        def run(state, b):
+            if len(step_ms) == TRAIN_STEPS - 1:
+                (out, prof["wall_ms"], prof["busy_ms"], prof["kernels"],
+                 prof["top"]) = profiled_step(step_fn, state, b)
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(state, b)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    reset_launches()
+    result = loop.run(
+        lambda p, b: tf.lm_loss(p, b, cfg, loss_chunks=nchunks), params,
+        opt, next_batch, loop.LoopConfig(total_steps=TRAIN_STEPS,
+                                         log_every=1),
+        step_fn_transform=timed)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    del params
+    losses = [h["loss"] for h in result.history]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{label} every loss finite ({losses})")
+    check(not any(launches.values()),
+          f"{label} the training path launches none of the gene-search kernels")
+    state = result.state
+    del result
+    warm = float(np.median(step_ms[1:]))
+    tokens = batch * TRAIN_SEQ
+    flops = lm_common.lm_model_flops(cfg, cell)
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      ckpt_mod._flatten_with_paths(state).values())
+    rec = {
+        "arch": arch, "layers": f"{cfg.n_layers} of {full.n_layers}",
+        "dtype": rec_dtype(dtype), "optimizer": "adamw" if "mu" in
+        state.opt_state else "adafactor",
+        "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+        "batch": batch, "seq": TRAIN_SEQ, "loss_chunks": nchunks,
+        "dropped_docs": pipe.dropped, "losses": losses,
+        "step_ms": [round(x, 3) for x in step_ms],
+        "warm_step_ms_median": round(warm, 3),
+        "tokens_per_s": round(tokens / warm * 1e3, 1),
+        "model_flops_per_step": flops,
+        "mfu_bf16_peak": round(flops / (warm / 1e3) / BF16_PEAK_FLOPS, 4),
+        "max_memory_allocated": peak, "train_state_bytes": state_bytes,
+        "profiled_step_wall_ms": round(prof["wall_ms"], 3),
+        "profiled_step_device_busy_ms": round(prof["busy_ms"], 3),
+        "device_busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+        "profiled_step_kernels": prof["kernels"],
+        "top_device_ops": prof["top"],
+    }
+    if checkpoint:
+        work = scratch_dir(label, state_bytes + (2 << 30))
+        try:
+            mgr = ckpt_mod.CheckpointManager(work)
+            t0 = time.perf_counter()
+            mgr.save(int(state.step), state, blocking=True)
+            rec["ckpt_save_s"] = round(time.perf_counter() - t0, 3)
+            rec["ckpt_bytes"] = os.path.getsize(
+                os.path.join(work, f"ckpt_{int(state.step):08d}.npz"))
+            t0 = time.perf_counter()
+            restored, manifest = mgr.restore(state)
+            torch.cuda.synchronize()
+            rec["ckpt_restore_s"] = round(time.perf_counter() - t0, 3)
+        finally:
+            remove_dir(work)
+        saved = ckpt_mod._flatten_with_paths(state)
+        back = ckpt_mod._flatten_with_paths(restored)
+        check(manifest["step"] == TRAIN_STEPS and list(saved) == list(back)
+              and all(bits_equal(saved[k], back[k]) for k in saved),
+              f"{label} the restored train state equals the saved one bit "
+              f"for bit")
+        rec["ckpt_leaves"] = len(saved)
+        del restored, back, saved
+    del state
+    rec["wall_s"] = round(time.perf_counter() - t_phase, 3)
+    print(f"phase {label} LM training: ok — {arch} full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}), depth "
+          f"{rec['layers']} layers, {rec['dtype']} parameters, f32 moments, "
+          f"remat, {batch}x{TRAIN_SEQ} from the idl dedup pipeline, "
+          f"{TRAIN_STEPS} steps through loop.run, every loss finite"
+          + (", checkpoint restored bit for bit" if checkpoint else "")
+          + "; " + json.dumps(rec, sort_keys=True))
+    return rec
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--fabric-gateway"]:
         fabric_gateway(sys.argv[2])     # phase 8's gateway process
@@ -3005,6 +3385,11 @@ def main() -> None:
     lm_card_vs_cpu_phase(dev)
     lm_serve_phase("10b", LM_MOE, None, dev)
     lm_serve_phase("10c", LM_DENSE, LM_DENSE_LAYERS, dev)
+    torch.cuda.empty_cache()
+    lm_train_card_vs_cpu_phase(dev)
+    lm_train_phase("11b", LM_MOE, None, TRAIN_MOE_BATCH, dev, checkpoint=True)
+    lm_train_phase("11c", LM_DENSE, LM_DENSE_LAYERS, TRAIN_DENSE_BATCH, dev,
+                   checkpoint=False)
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -27,7 +27,7 @@ def smoke_config() -> tf.LMConfig:
     return tf.LMConfig(
         name="arctic-480b-smoke",
         n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
-        d_ff=0, vocab=128, act="silu", gated_mlp=True,
+        d_ff=0, vocab=128, act="silu", gated_mlp=True, remat=False,
         moe=moe_mod.MoeConfig(
             d_model=64, d_ff=32, n_experts=8, top_k=2,
             capacity_factor=1.25, act="silu", gated=True, residual_d_ff=32,

@@ -7,7 +7,7 @@ Port of the registry half of :mod:`repro.configs.base`. An
   * a REDUCED smoke config (same family, tiny sizes) for CPU tests,
   * ``shapes``: the architecture's own input-shape set,
   * ``step_fn(config, shape)`` — the function that serves one batch of a
-    ``serve`` cell (and, once training is ported, a ``train`` cell),
+    ``serve`` cell or takes one train step of a ``train`` cell,
   * ``model_flops_fn(config, shape)`` — the model FLOPs of one step.
 
 The reference's mesh and ``PartitionSpec`` fields and its ``input_specs``

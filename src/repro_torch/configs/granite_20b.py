@@ -21,7 +21,7 @@ def smoke_config() -> tf.LMConfig:
     return tf.LMConfig(
         name="granite-20b-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=1,
-        d_ff=256, vocab=128, act="gelu", gated_mlp=False,
+        d_ff=256, vocab=128, act="gelu", gated_mlp=False, remat=False,
     )
 
 

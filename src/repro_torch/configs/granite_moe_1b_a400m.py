@@ -27,7 +27,7 @@ def smoke_config() -> tf.LMConfig:
         name="granite-moe-1b-a400m-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         d_ff=0, vocab=128, act="silu", gated_mlp=True,
-        tie_embeddings=True,
+        tie_embeddings=True, remat=False,
         moe=moe_mod.MoeConfig(
             d_model=64, d_ff=32, n_experts=4, top_k=2,
             capacity_factor=1.25, act="silu", gated=True,

@@ -21,7 +21,7 @@ def smoke_config() -> tf.LMConfig:
     return tf.LMConfig(
         name="internlm2-20b-smoke",
         n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        d_ff=192, vocab=128, act="silu", gated_mlp=True,
+        d_ff=192, vocab=128, act="silu", gated_mlp=True, remat=False,
         rope_theta=1000000.0,
     )
 

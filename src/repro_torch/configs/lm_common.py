@@ -1,17 +1,18 @@
-"""LM-family plumbing shared by the five transformer archs — the serve half.
+"""LM-family plumbing shared by the five transformer archs.
 
-Port of the serving half of :mod:`repro.configs.lm_common`. Shapes
-(assignment):
+Port of :mod:`repro.configs.lm_common`: shapes, parameter dtype, the
+optimizer choice, the loss-chunk and microbatch rules and the step
+functions. Shapes (assignment):
 
-  train_4k     seq 4,096  × global_batch 256   -> train step (not ported yet)
+  train_4k     seq 4,096  × global_batch 256   -> train step
   prefill_32k  seq 32,768 × global_batch 32    -> serve (prefill)
   decode_32k   seq 32,768 KV × global_batch 128 -> serve (one-token decode)
   long_500k    SKIPPED for all five archs: each is pure full-attention GQA
                per its public config (sub-quadratic attention required).
 
-The reference's sharding rules, optimizer choice and train step wait for
-the training slice; its ``input_specs`` / ``abstract_state`` belong to its
-dry run.
+The reference's sharding rules and its ``input_specs`` /
+``abstract_state`` belong to its mesh and dry run and have no counterpart
+on one card.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.configs import base
 from repro_torch.models import transformer as tf
+from repro_torch.train import optimizer as opt_mod, train_state as ts
 
 
 def lm_shapes() -> dict[str, base.ShapeCell]:
@@ -48,22 +50,52 @@ def param_dtype(cfg: tf.LMConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_count() > 0.5e9 else torch.float32
 
 
+def choose_optimizer(cfg: tf.LMConfig) -> opt_mod.Optimizer:
+    if cfg.param_count() > 30e9:
+        return opt_mod.adafactor(lr=1e-2)
+    return opt_mod.adamw(lr=3e-4)
+
+
 def _serve_cfg(cfg: tf.LMConfig, cell: base.ShapeCell) -> tf.LMConfig:
     # long prefill: full (S, S) scores would not fit; use the chunked path
     if cell.meta.get("mode") == "prefill" and cell.meta["seq"] > 8192:
-        return dataclasses.replace(cfg, attn_chunk=1024)
-    return cfg
+        return dataclasses.replace(cfg, attn_chunk=1024, remat=False)
+    return dataclasses.replace(cfg, remat=False)
+
+
+def loss_chunks_for(cell: base.ShapeCell) -> int:
+    """CE chunk count: ~16k tokens per chunk so the logits buffer stays
+    tens of MB even at vocab 256k (power-of-two, divides seq)."""
+    b, s = cell.meta["batch"], cell.meta["seq"]
+    target = max(1, (b * s) // 16384)
+    n = 1
+    while n * 2 <= min(target, s):
+        n *= 2
+    return max(n, 8) if s % max(n, 8) == 0 else n
+
+
+def microbatch_for(cfg: tf.LMConfig, cell: base.ShapeCell) -> int:
+    """Gradient-accumulation microbatches: 0 (none), as the reference
+    chose for every LM cell; the knob stays on ``make_train_step``."""
+    return 0
 
 
 def step_fn(cfg: tf.LMConfig, cell: base.ShapeCell):
-    """The serve step of ``cell``: ``prefill(params, {"tokens": (B, S)})``
-    -> (last logits, cache), or ``decode({"params", "cache"}, {"tokens":
-    (B,)})`` -> ``{"logits", "cache"}``. ``params`` is the parameter dict
+    """The step of ``cell``. A ``train`` cell: ``train_step(state, {"tokens",
+    "labels"})`` -> (state, metrics) over a :class:`TrainState` (updated
+    in place) with the optimizer of :func:`choose_optimizer`. A serve cell:
+    ``prefill(params, {"tokens": (B, S)})`` -> (last logits, cache), or
+    ``decode({"params", "cache"}, {"tokens": (B,)})`` -> ``{"logits",
+    "cache"}``. ``params`` is the parameter dict
     (``TransformerLM.params()``)."""
     if cell.kind == "train":
-        raise NotImplementedError(
-            f"cell {cell.name!r} is a train cell: the port serves the LM "
-            f"archs only (training is not ported yet)")
+        opt = choose_optimizer(cfg)
+        nchunks = loss_chunks_for(cell)
+
+        def loss(p, b):
+            return tf.lm_loss(p, b, cfg, loss_chunks=nchunks)
+        return ts.make_train_step(loss, opt,
+                                  microbatch=microbatch_for(cfg, cell))
     scfg = _serve_cfg(cfg, cell)
     if cell.meta["mode"] == "prefill":
         @torch.inference_mode()

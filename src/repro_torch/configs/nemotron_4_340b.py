@@ -20,7 +20,7 @@ def smoke_config() -> tf.LMConfig:
     return tf.LMConfig(
         name="nemotron-4-340b-smoke",
         n_layers=2, d_model=96, n_heads=6, n_kv_heads=2,
-        d_ff=384, vocab=128, act="relu2", gated_mlp=False,
+        d_ff=384, vocab=128, act="relu2", gated_mlp=False, remat=False,
     )
 
 

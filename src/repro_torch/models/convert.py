@@ -1,11 +1,12 @@
-"""Carry the reference's LM weights and KV caches across to the port.
+"""Carry the reference's LM weights, KV caches and train states across.
 
 The reference's parameter pytree, as nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the reference's side), becomes a
 :class:`~repro_torch.models.transformer.TransformerLM` with the same keys,
-shapes and dtypes. The port never imports JAX to read it: a bf16 leaf
-arrives as a numpy array of the ``bfloat16`` extension dtype and is
-reinterpreted through its 16 bits.
+shapes and dtypes; its ``TrainState`` becomes the port's
+:class:`~repro_torch.train.train_state.TrainState`. The port never
+imports JAX to read them: a bf16 leaf arrives as a numpy array of the
+``bfloat16`` extension dtype and is reinterpreted through its 16 bits.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import Params
+from repro_torch.train import train_state as ts
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -28,9 +30,13 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(tree: Params, device) -> Params:
-    return {k: _tree(v, device) if isinstance(v, dict)
-            else tensor_from_numpy(v, device) for k, v in tree.items()}
+def _tree(tree, device):
+    """Nested dicts of numpy leaves as tensors; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
 
 
 def params_from_jax(tree: Params, cfg: tf.LMConfig,
@@ -44,3 +50,20 @@ def cache_from_jax(cache: Params, device="cuda") -> Params:
     """The reference's KV cache dict (``k``, ``v``, ``len``; numpy leaves)
     as the port's, dtype for dtype."""
     return _tree(cache, device)
+
+
+def train_state_from_jax(state, cfg: tf.LMConfig,
+                         device="cuda") -> ts.TrainState:
+    """The reference's ``TrainState`` (numpy leaves: ``params``; an AdamW
+    ``opt_state`` of ``mu``/``nu``/``step`` or an Adafactor one of
+    ``per_param`` ``vr``/``vc``/``v``/``m`` and ``step``; ``step``) as the
+    port's on ``device``, dtype for dtype. ``cfg`` is the model's config,
+    checked against the parameters' layer count."""
+    params = _tree(state.params, device)
+    n = params["layers"]["ln1"].shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"state has {n} layers; {cfg.name} has "
+                         f"{cfg.n_layers}")
+    return ts.TrainState(params=params,
+                         opt_state=_tree(state.opt_state, device),
+                         step=tensor_from_numpy(state.step, device))

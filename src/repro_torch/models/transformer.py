@@ -1,16 +1,23 @@
-"""Decoder-only transformer LM: dense or MoE, GQA, RoPE — the serving path.
+"""Decoder-only transformer LM: dense or MoE, GQA, RoPE — serve and train.
 
 Port of :mod:`repro.models.transformer` for the five LM archs (arctic-480b,
 granite-moe-1b, granite-20b, nemotron-4-340b, internlm2-20b): the config,
-init, forward, prefill (filling a KV cache) and one-token decode. Training
-(``lm_loss``) is not ported yet.
+init, forward, the training loss (:func:`lm_loss`, chunked cross-entropy
+with z-loss and the MoE aux loss), prefill (filling a KV cache) and
+one-token decode.
 
 Parameters keep the reference's pytree: a nested dict whose per-layer
 leaves are stacked along a leading ``(n_layers, ...)`` axis, so carrying
 the reference's weights across is a copy
 (:func:`repro_torch.models.convert.params_from_jax`). A Python loop over
-the layers takes the place of the reference's ``lax.scan``; its remat and
-sharding constraints exist only for XLA and are dropped.
+the layers takes the place of the reference's ``lax.scan``. Under
+autograd, ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+scan body): a layer's activations are recomputed in backward, so only
+each layer's input is kept. The loss's sequence chunks are checkpointed
+likewise, so one chunk's logits are live at a time. Serving runs without
+autograd and never checkpoints. The reference's sharding constraints exist
+only for XLA and are dropped.
 :class:`TransformerLM` holds such a tree as an ``nn.Module`` (its
 ``state_dict`` keys are the reference's paths); the functions take the
 plain dict (``model.params()``), as the reference's do.
@@ -23,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.models import layers, moe as moe_mod
 from repro_torch.models.layers import Params
@@ -43,6 +51,8 @@ class LMConfig:
     moe: Optional[moe_mod.MoeConfig] = None
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # recompute each layer in backward (training only)
+    remat: bool = True
     # sliding-window attention (beyond-paper option for long context); 0=full
     attn_window: int = 0
     # query-chunked (flash-style) attention; 0 = full scores. Enabled for
@@ -217,16 +227,37 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(params["ln_f"].dtype)
 
 
+def _unstack(stacked: Params, n_layers: int) -> list:
+    """Every layer's slice (views) of the stacked layer tree, through one
+    ``unbind`` a leaf: under autograd each stacked leaf's gradient is then
+    one stack of the per-layer gradients, not a full-size sum a layer."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v, 0)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n_layers)]
+
+
 def lm_hidden(params: Params, tokens: torch.Tensor,
               cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) int -> (final hidden (B, S, d), moe aux loss)."""
+    """tokens (B, S) int -> (final hidden (B, S, d), moe aux loss).
+
+    Under autograd with ``cfg.remat`` each layer runs checkpointed."""
     x = _embed(params, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _, _ = _block(cfg, layer_params(params["layers"], i), x,
-                            positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            x, a, _, _ = torch_checkpoint.checkpoint(
+                _block, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x, a, _, _ = _block(cfg, lp, x, positions)
         aux = aux + a
     return layers.rmsnorm(x, params["ln_f"]), aux
 
@@ -243,6 +274,48 @@ def lm_forward(params: Params, tokens: torch.Tensor,
     """tokens (B, S) int -> (logits (B, S, V) f32, aux loss)."""
     x, aux = lm_hidden(params, tokens, cfg)
     return _unembed(params, x).float(), aux
+
+
+def _ce_chunk(params: Params, xc: torch.Tensor, lc: torch.Tensor):
+    """One sequence chunk's (-sum log-likelihood, sum logz^2, label count)
+    over its unmasked labels (``< 0`` masked, after clipping to 0)."""
+    logits = _unembed(params, xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    ll = ll - logz
+    mask = (lc >= 0).float()
+    return -(ll * mask).sum(), ((logz * mask) ** 2).sum(), mask.sum()
+
+
+def lm_loss(params: Params, batch: dict, cfg: LMConfig,
+            loss_chunks: int = 8) -> tuple[torch.Tensor, dict]:
+    """Next-token CE + z-loss + MoE aux, with CHUNKED cross-entropy.
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S). The unembed + CE runs
+    over ``loss_chunks`` sequence chunks (one chunk when it does not divide
+    S); under autograd each chunk is checkpointed, so its (B, S/n, V)
+    logits are recomputed in backward and only one chunk's are ever live.
+    Returns (loss, {"ce", "zloss", "moe_aux"})."""
+    x, aux = lm_hidden(params, batch["tokens"], cfg)   # (B, S, d)
+    labels = batch["labels"]
+    s = x.shape[1]
+    n = loss_chunks if s % loss_chunks == 0 else 1
+    w = s // n
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce_sum, z_sum, cnt = zero, zero, zero
+    for i in range(n):
+        xc, lc = x[:, i * w:(i + 1) * w], labels[:, i * w:(i + 1) * w]
+        if torch.is_grad_enabled():
+            c, z, m = torch_checkpoint.checkpoint(
+                _ce_chunk, params, xc, lc, use_reentrant=False)
+        else:
+            c, z, m = _ce_chunk(params, xc, lc)
+        ce_sum, z_sum, cnt = ce_sum + c, z_sum + z, cnt + m
+    denom = torch.clamp(cnt, min=1.0)
+    ce = ce_sum / denom
+    zloss = 1e-4 * z_sum / denom
+    loss = ce + zloss + aux
+    return loss, {"ce": ce, "zloss": zloss, "moe_aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -696,3 +696,84 @@ def test_two_shard_scatter_router_on_cuda(cuda, tmp_path):
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b.matches)
         assert b.missing_files == ()
+
+
+def _lm_train_inputs(arch, seed):
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(arch).make_smoke_config()
+    params = tf.lm_init(0, cfg, device="cpu").params()
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))),
+             "labels": torch.from_numpy(rng.integers(-1, cfg.vocab, (2, 16)))}
+    return cfg, params, batch
+
+
+def _to(tree, dev):
+    """A copy of ``tree`` on ``dev`` (a copy on the CPU too: the train step
+    updates its state in place)."""
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in tree.items()}
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "noremat"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "granite-20b"])
+def test_lm_loss_and_grads_card_vs_cpu(cuda, no_tf32, arch, remat):
+    """``lm_loss`` and every gradient leaf on the card against the CPU, f32
+    with TF32 off: loss rtol 1e-4, each leaf within 1e-4 of its max |g|."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    cfg, params, batch = _lm_train_inputs(arch, 5)
+    cfg = dataclasses.replace(cfg, remat=remat)
+
+    def loss_fn(p, b):
+        return tf.lm_loss(p, b, cfg, loss_chunks=4)
+    want, wm, wg = ts.value_and_grad(loss_fn, params, batch)
+    got, gm, gg = ts.value_and_grad(loss_fn, _to(params, cuda),
+                                    _to(batch, cuda))
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+    for k in wm:
+        torch.testing.assert_close(gm[k].cpu(), wm[k], rtol=1e-4, atol=1e-6)
+    for g, w in zip(opt_mod.tree_leaves(gg), opt_mod.tree_leaves(wg)):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+def test_lm_train_step_card_vs_cpu(cuda, no_tf32):
+    """One AdamW step through ``make_train_step`` on the card against the
+    CPU: loss and grad norm rtol 1e-4; parameters within 2 * lr (a
+    gradient within rounding of zero may flip AdamW's sign step) and the
+    state updated in place."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    cfg, params, batch = _lm_train_inputs("granite-moe-1b-a400m", 6)
+    lr = 1e-3
+    step = ts.make_train_step(
+        lambda p, b: tf.lm_loss(p, b, cfg, loss_chunks=2), opt_mod.adamw(lr))
+    out = {}
+    for dev in ("cpu", cuda):
+        state = ts.TrainState.create(_to(params, dev), opt_mod.adamw(lr))
+        embed = state.params["embed"]
+        state, m = step(state, _to(batch, dev))
+        assert state.params["embed"] is embed and int(state.step) == 1
+        out[str(dev)] = (state, m)
+    (cs, cm), (gs, gm) = out["cpu"], out[str(cuda)]
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-4, atol=0)
+    for g, c in zip(opt_mod.tree_leaves(gs.params),
+                    opt_mod.tree_leaves(cs.params)):
+        assert float((g.cpu() - c).abs().max()) <= 2 * lr * 1.001 + 1e-6

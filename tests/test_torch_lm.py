@@ -451,7 +451,6 @@ def test_registry_holds_the_ported_archs():
 
 def _fields(cfg) -> dict:
     d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    d.pop("remat", None)             # XLA's rematerialisation: not ported
     if d.get("moe") is not None:
         d["moe"] = dataclasses.asdict(d["moe"])
     return d
@@ -490,13 +489,8 @@ def test_full_config_numbers_match_reference(arch):
         assert spec.model_flops_fn(cfg, cell) == jspec.model_flops_fn(
             jcfg, jcell)
         scfg = lm_common._serve_cfg(cfg, cell)
-        assert scfg.attn_chunk == j_lm_common._serve_cfg(jcfg, jcell).attn_chunk
-
-
-def test_step_fn_refuses_a_train_cell():
-    spec = configs.get("granite-20b")
-    with pytest.raises(NotImplementedError, match="train_4k"):
-        spec.step_fn(spec.make_smoke_config(), spec.shapes["train_4k"])
+        jscfg = j_lm_common._serve_cfg(jcfg, jcell)
+        assert (scfg.attn_chunk, scfg.remat) == (jscfg.attn_chunk, jscfg.remat)
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internlm2-20b"])
@@ -536,7 +530,10 @@ def test_long_prefill_serves_through_chunked_attention():
     cell = configs.get("granite-20b").shapes["prefill_32k"]
     assert lm_common._serve_cfg(cfg, cell).attn_chunk == 1024
     short = dataclasses.replace(cell, meta={**cell.meta, "seq": 8192})
-    assert lm_common._serve_cfg(cfg, short) is cfg
+    assert lm_common._serve_cfg(cfg, short) == dataclasses.replace(
+        cfg, remat=False)
+    full = configs.get("granite-20b").make_config()
+    assert full.remat and not lm_common._serve_cfg(full, short).remat
 
 
 def test_genesearch_spec_serves_like_the_reference():

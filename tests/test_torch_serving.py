@@ -233,10 +233,14 @@ def test_port_imports_neither_jax_nor_reference():
         os.path.join(REPO, "examples", f)
         for f in os.listdir(os.path.join(REPO, "examples"))
         if f.startswith("torch_") and f.endswith(".py"))
-    assert len(examples) == 3, examples
+    assert len(examples) == 4, examples
     assert {"repro_torch.models.transformer", "repro_torch.core.theory",
             "repro_torch.core.cache_model", "repro_torch.configs.lm_common",
-            "repro_torch.models.convert"} <= set(mods)
+            "repro_torch.models.convert", "repro_torch.train.optimizer",
+            "repro_torch.train.train_state", "repro_torch.train.checkpoint",
+            "repro_torch.train.loop", "repro_torch.data.lm_pipeline",
+            "repro_torch.distributed.fault_tolerance",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import sys, importlib, importlib.util\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
