@@ -140,11 +140,44 @@ reference package) and runs these phases, printing one line each:
    operators from ``torch.profiler`` over the last step, then the final
    train state saved as one checkpoint (13.35 GB) and restored, both
    timed, equal bit for bit; 11c ``granite-20b`` at full width, 4 of 52
-   layers, 2 x 4096, the same numbers without a checkpoint.
+   layers, 2 x 4096, the same numbers without a checkpoint;
+12. the recsys family, plain PyTorch (row gathers, autograd, AdamW; the
+   path must launch none of the kernels): 12a ``hash_rows`` under
+   ``none``, ``rh`` and ``idl`` on the card equal to the CPU's (negative
+   ids, FM's 39 x 2^20 rows), then FM, SASRec, two-tower and MIND at
+   their smoke configs and FM at full width (vocab 2^12 a field), f32
+   with TF32 off, the same seeded weights on both: the registry's score
+   and retrieval steps and the loss within rtol 1e-3, atol 1e-4, each
+   gradient leaf within 1e-3 of its max |g|; 12b each arch's
+   ``full_config`` (FM 39 x 2^20 x 10, SASRec d 50 / 2 blocks / S 50 /
+   2^20 items, two-tower d 256 / towers 1024-512-256 / 2^23 users and
+   items, MIND d 64 / 4 interests / 3 iterations / 2^20 items) served
+   through the registry's ``step_fn`` on ``serve_p99`` (512),
+   ``serve_bulk`` (262,144) and ``retrieval_cand`` (1 x 1,000,000), and
+   FM's and SASRec's ``serve_bulk`` again under ``rh`` and ``idl`` row
+   hashing: the median warm ms, rows a second, the peak device memory;
+   12c one cold and two timed AdamW steps at ``train_batch`` 65,536 for
+   each arch (two-tower's tables cut to 2^22 rows): step ms, the
+   model-FLOP share of 989 TFLOP/s, the peak memory;
+13. the EquiformerV2 GNN, plain PyTorch (the Wigner recursion, segment
+   ops, autograd with a checkpoint a layer, AdamW; no kernel): 13a the
+   full widths (d_hidden 128, l_max 6, m_max 2, 8 heads) cut to 2 layers
+   on a 64-node graph, f32, TF32 off, card against CPU (loss rtol 1e-3,
+   each gradient leaf within 1e-3 of its max |g|) and the outputs on the
+   card invariant under a rotation of the positions (2e-3); 13b
+   ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features, 7
+   classes, all 12 layers), 13c ``molecule`` (128 graphs of 30 nodes / 64
+   edges, 12 layers), 13d ``minibatch_lg`` (one 15-10 fanout batch from
+   1,024 seeds of a 232,965-node graph, padded to 169,984 nodes and
+   168,960 edges, cut to 2 layers): 4 AdamW steps through the registry's
+   ``step_fn`` each, the median warm step, the edge-rotation stage
+   alone (ms and kernels), the peak memory and the device's busy share
+   over the last step under ``torch.profiler``. ``ogb_products`` does not
+   run (one edge tensor at its 61.9M edges is 1.55 TB).
 
 The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
-6, 7c, 9b, 10 (after 9b has freed the card), 11. Phases 8, 9, 11a and
+6, 7c, 9b, 10 (after 9b has freed the card), 11, 12, 13. Phases 8, 9, 11a and
 11b print their temp root's free bytes before they save (8 and 9a write
 8 GiB snapshots, 11b a 13.35 GB checkpoint; too little room fails the
 run) and remove them, and print their wall seconds.
@@ -163,6 +196,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -3330,6 +3364,608 @@ def lm_train_phase(label: str, arch: str, n_layers, batch: int, dev,
     return rec
 
 
+# -- phase 12: the recsys family (IDL row hashing), served and trained -------
+
+RECSYS_ARCHS = ["fm", "sasrec", "two-tower-retrieval", "mind"]
+RECSYS_CHECK_BATCH = 64              # 12a: card vs CPU batch
+RECSYS_CHECK_CANDS = 4096            # 12a: retrieval candidates
+FM_CHECK_VOCAB = 1 << 12             # 12a: FM full width, vocab cut from 2^20
+RECSYS_SCORE_CANDS = 100             # the reference's score_inputs: (B, 100)
+RECSYS_SERVE_REPS = 5                # 12b: warm calls a cell, after one cold
+RECSYS_TRAIN_STEPS = 3               # 12c: 0 cold, 1-2 timed
+TWO_TOWER_TRAIN_ROWS = 1 << 22       # 12c: two-tower tables, cut from 2^23
+RECSYS_SEED = 0
+
+
+def recsys_init(arch: str):
+    from repro_torch.models import recsys
+
+    return {"fm": recsys.fm_init, "sasrec": recsys.sasrec_init,
+            "two-tower-retrieval": recsys.twotower_init,
+            "mind": recsys.mind_init}[arch]
+
+
+def recsys_loss(arch: str):
+    from repro_torch.models import recsys
+
+    return {"fm": recsys.fm_loss, "sasrec": recsys.sasrec_loss,
+            "two-tower-retrieval": recsys.twotower_loss,
+            "mind": recsys.mind_loss}[arch]
+
+
+def recsys_inputs(arch: str, cfg, kind: str, n: int, seed: int) -> dict:
+    """Host (numpy) inputs of one cell of ``arch``: a ``train`` batch of n
+    from ``SessionGenerator``, a ``score`` batch of n requests (sessions
+    with planted locality, ``RECSYS_SCORE_CANDS`` candidates each) or a
+    ``retrieval`` query against n candidates, shaped as the reference's
+    ``*_inputs``."""
+    from repro_torch.data import recsys_pipeline
+
+    gen = recsys_pipeline.SessionGenerator(recsys_pipeline.RecsysSynthConfig(
+        n_items=getattr(cfg, "n_items", 1 << 20),
+        n_users=getattr(cfg, "n_users", 1 << 18),
+        session_len=getattr(cfg, "seq_len", 50), seed=seed))
+    rng = np.random.default_rng(seed + 1)
+    i32 = np.int32
+    if arch == "fm":
+        if kind == "train":
+            return gen.fm_batch(n, cfg.n_sparse, cfg.vocab_per_field)
+        if kind == "score":
+            return {"feats": gen.fm_batch(n, cfg.n_sparse,
+                                          cfg.vocab_per_field)["feats"]}
+        return {"context": rng.integers(0, cfg.vocab_per_field,
+                                        (1, cfg.n_sparse)).astype(i32),
+                "cands": rng.integers(0, cfg.vocab_per_field, n).astype(i32)}
+    if arch == "two-tower-retrieval":
+        if kind == "retrieval":
+            b = gen.retrieval_batch(n, cfg.n_user_feats, cfg.n_item_feats)
+            return {"user_feats": b["user_feats"], "cand_feats": b["cand_feats"]}
+        return gen.twotower_batch(n, cfg.n_user_feats, cfg.n_item_feats)
+    if kind == "train":
+        return gen.sasrec_batch(n) if arch == "sasrec" else gen.mind_batch(n)
+    rows = 1 if kind == "retrieval" else n
+    out = {"seq": gen.sessions(rows),
+           "cands": (rng.integers(0, cfg.n_items, n) if kind == "retrieval"
+                     else rng.integers(0, cfg.n_items,
+                                       (n, RECSYS_SCORE_CANDS))).astype(i32)}
+    if arch == "mind":
+        out["mask"] = np.ones(out["seq"].shape, np.float32)
+    return out
+
+
+def free_card() -> None:
+    """Collect garbage (an earlier phase's tensors held only by a reference
+    cycle) and return the card's cached blocks, so a phase starts on a
+    clear card and its peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def on_device(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def grad_rel_errs(want: dict, got: dict) -> dict:
+    """Per leaf: max |got - want| over the leaf's max |want|."""
+    out = {}
+    for name, w, g in zip(ckpt_keys(want), tree_leaves(want),
+                          tree_leaves(got)):
+        scale = max(float(w.abs().max()), 1e-30)
+        out[name] = float((g.cpu() - w).abs().max()) / scale
+    return out
+
+
+def recsys_card_vs_cpu_phase(dev) -> dict:
+    """Phase 12a: each recsys arch at its smoke config, and FM at full
+    width with ``vocab_per_field`` cut to ``FM_CHECK_VOCAB``, f32 with TF32
+    off, the same seeded weights on the card and the CPU: ``hash_rows``
+    under the three schemes (negative ids and FM's full row count
+    included) exactly equal; the registry's score and retrieval steps and
+    the loss within rtol 1e-3, atol 1e-4; each gradient leaf within 1e-3
+    of its max |g|."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import recsys
+    from repro_torch.train import train_state as ts
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(RECSYS_SEED)
+    ids = torch.from_numpy(np.concatenate([
+        rng.integers(-(1 << 31), 1 << 31, 1 << 16),
+        rng.integers(0, 1 << 20) + np.arange(-4096, 4096)]).astype(np.int32))
+    full_rows = 39 * (1 << 20)
+    for scheme in ("none", "rh", "idl"):
+        for n_rows in (1 << 10, 8 * 256, full_rows):
+            want = recsys.hash_rows(ids, n_rows, scheme)
+            got = recsys.hash_rows(ids.to(dev), n_rows, scheme)
+            check(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+                  f"12a hash_rows {scheme} at {n_rows} rows equal on the "
+                  f"card and the CPU")
+    cases = [(a, configs.get(a).make_smoke_config()) for a in RECSYS_ARCHS]
+    cases.append(("fm", dataclasses.replace(
+        configs.get("fm").make_config(), vocab_per_field=FM_CHECK_VOCAB)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    recs = []
+    try:
+        for arch, cfg in cases:
+            spec = configs.get(arch)
+            params = {"cpu": recsys_init(arch)(RECSYS_SEED, cfg,
+                                               device="cpu")}
+            params[dev] = tree_map(lambda p: p.to(dev), params["cpu"])
+            rec = {"arch": cfg.name}
+            for cell in ("serve_p99", "retrieval_cand"):
+                kind = spec.shapes[cell].meta["mode"]
+                n = RECSYS_CHECK_BATCH if kind == "score" else \
+                    RECSYS_CHECK_CANDS
+                host = recsys_inputs(arch, cfg, kind, n, RECSYS_SEED + 2)
+                step = spec.step_fn(cfg, spec.shapes[cell])
+                want = step(params["cpu"], on_device(host, "cpu"))
+                got = step(params[dev], on_device(host, dev)).cpu()
+                check(torch.allclose(got, want, rtol=1e-3, atol=1e-4),
+                      f"12a {cfg.name} {kind} on the card == CPU within "
+                      f"rtol 1e-3, atol 1e-4")
+                rec[f"{kind}_max_abs_err"] = float((got - want).abs().max())
+            host = recsys_inputs(arch, cfg, "train", RECSYS_CHECK_BATCH,
+                                 RECSYS_SEED + 3)
+            if arch == "sasrec":
+                host["pos"][:, :2] = -1            # masked positions
+
+            def loss_fn(p, b):
+                return recsys_loss(arch)(p, b, cfg)
+            out = {w: ts.value_and_grad(loss_fn, params[w],
+                                        on_device(host, w))
+                   for w in ("cpu", dev)}
+            (closs, _, cgrad), (gloss, _, ggrad) = out["cpu"], out[dev]
+            check(torch.allclose(gloss.cpu(), closs, rtol=1e-3, atol=1e-4),
+                  f"12a {cfg.name} loss on the card == CPU within rtol 1e-3 "
+                  f"({float(gloss)} vs {float(closs)})")
+            errs = grad_rel_errs(cgrad, ggrad)
+            for name, e in errs.items():
+                check(e <= 1e-3, f"12a {cfg.name} gradient {name} on the "
+                      f"card within 1e-3 of its max |g| ({e})")
+            rec.update(loss_rel_err=abs(float(gloss) - float(closs))
+                       / max(abs(float(closs)), 1e-30),
+                       grad_max_rel_err=max(errs.values()))
+            recs.append(rec)
+            del params, out, cgrad, ggrad
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = read_launches()
+    check(not any(launches.values()),
+          "12a the recsys path launches none of the gene-search kernels")
+    print(f"phase 12a recsys card vs CPU: ok ({nvidia_smi()}) — hash_rows "
+          f"none/rh/idl equal at 1024, 2048 and {full_rows} rows; the four "
+          f"smoke configs and FM full width (vocab {FM_CHECK_VOCAB} a "
+          f"field), f32, TF32 off: score and retrieval rtol 1e-3 atol 1e-4, "
+          f"loss rtol 1e-3, gradients within 1e-3 of each leaf's max; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; " + json.dumps(recs))
+    return {"cases": recs}
+
+
+def timed_calls(fn, reps: int) -> list:
+    """Host wall ms of ``reps`` calls of ``fn``, each ended by a sync."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def recsys_serve_phase(dev) -> dict:
+    """Phase 12b: each arch's ``full_config`` (published widths, random
+    seeded weights, f32) served through the registry's ``step_fn`` on its
+    three serve cells: ``serve_p99`` (512 requests), ``serve_bulk``
+    (262,144) and ``retrieval_cand`` (1 query x 1,000,000 candidates).
+    Per cell: one cold call, the median of ``RECSYS_SERVE_REPS`` warm
+    calls, rows (candidates) a second and the peak device memory; every
+    score finite. FM and SASRec also serve ``serve_bulk`` under
+    ``hash_scheme`` ``rh`` and ``idl`` with the same weights (the paper's
+    row locality on the gather; reported, not judged)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "12b f32 without TF32")
+    recs = []
+    reset_launches()
+    for arch in RECSYS_ARCHS:
+        spec = configs.get(arch)
+        cfg = spec.make_config()
+        free_card()
+        params = recsys_init(arch)(RECSYS_SEED, cfg, device=dev)
+        param_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_leaves(params))
+        runs = [(c, "none") for c in ("serve_p99", "serve_bulk",
+                                      "retrieval_cand")]
+        if arch in ("fm", "sasrec"):
+            runs += [("serve_bulk", "rh"), ("serve_bulk", "idl")]
+        for cell_name, scheme in runs:
+            cell = spec.shapes[cell_name]
+            ccfg = dataclasses.replace(cfg, hash_scheme=scheme)
+            kind = cell.meta["mode"]
+            n = cell.meta["candidates"] if kind == "retrieval" else \
+                cell.meta["batch"]
+            t0 = time.perf_counter()
+            batch = on_device(recsys_inputs(arch, ccfg, kind, n,
+                                            RECSYS_SEED + 4), dev)
+            inputs_s = time.perf_counter() - t0
+            step = spec.step_fn(ccfg, cell)
+            torch.cuda.reset_peak_memory_stats()
+            out = {}
+
+            def call():
+                out["scores"] = step(params, batch)
+            cold = timed_calls(call, 1)[0]
+            warm = timed_calls(call, RECSYS_SERVE_REPS)
+            peak = torch.cuda.max_memory_allocated()
+            scores = out["scores"]
+            want = (n,) if kind == "retrieval" else (n,) if arch in (
+                "fm", "two-tower-retrieval") else (n, RECSYS_SCORE_CANDS)
+            check(tuple(scores.shape) == want and bool(
+                torch.isfinite(scores).all()),
+                  f"12b {arch} {cell_name} {scheme}: scores of shape {want}, "
+                  f"all finite")
+            med = float(np.median(warm))
+            recs.append({
+                "arch": arch, "cell": cell_name, "hash_scheme": scheme,
+                "rows": n, "cold_ms": round(cold, 3),
+                "warm_ms": [round(x, 3) for x in warm],
+                "warm_ms_median": round(med, 3),
+                "rows_per_s": round(n / med * 1e3, 1),
+                "max_memory_allocated": peak, "param_bytes": param_bytes,
+                "inputs_host_s": round(inputs_s, 3),
+                "model_flops": spec.model_flops_fn(ccfg, cell)})
+            del batch, out, scores
+        del params
+    launches = read_launches()
+    check(not any(launches.values()),
+          "12b the recsys path launches none of the gene-search kernels")
+    torch.cuda.empty_cache()
+    print(f"phase 12b recsys serving: ok ({nvidia_smi()}) — full configs "
+          f"(fm 39 x 2^20 x 10; sasrec d 50, 2 blocks, S 50, 2^20 items; "
+          f"two-tower d 256, towers 1024-512-256, 2^23 users and items; mind "
+          f"d 64, 4 interests, 3 iterations, S 50, 2^20 items), f32, through "
+          f"the registry's step_fn, every score finite; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; " + json.dumps(recs))
+    return {"cells": recs}
+
+
+def recsys_train_phase(dev) -> dict:
+    """Phase 12c: each arch's ``full_config`` (two-tower's tables cut to
+    ``TWO_TOWER_TRAIN_ROWS`` rows each), f32 parameters and AdamW moments,
+    ``RECSYS_TRAIN_STEPS`` steps through the registry's ``train_batch``
+    ``step_fn`` at batch 65,536 from ``SessionGenerator``: every loss
+    finite, the median warm step, the model-FLOP share of 989 TFLOP/s and
+    the peak device memory."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32, "12c f32 without TF32")
+    recs = []
+    reset_launches()
+    for arch in RECSYS_ARCHS:
+        spec = configs.get(arch)
+        cfg = spec.make_config()
+        reduced = []
+        if arch == "two-tower-retrieval":
+            cfg = dataclasses.replace(cfg, n_users=TWO_TOWER_TRAIN_ROWS,
+                                      n_items=TWO_TOWER_TRAIN_ROWS)
+            reduced.append(f"user and item tables 2^23 -> "
+                           f"{TWO_TOWER_TRAIN_ROWS} rows each (at 2^23, "
+                           f"17.2 GB of tables, their dense gradients, two "
+                           f"AdamW moments and the update come to 86 GB "
+                           f"before temporaries)")
+        cell = spec.shapes["train_batch"]
+        b = cell.meta["batch"]
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        state = ts.TrainState.create(
+            recsys_init(arch)(RECSYS_SEED, cfg, device=dev),
+            opt_mod.adamw(1e-3))
+        step = spec.step_fn(cfg, cell)
+        batches = [on_device(recsys_inputs(arch, cfg, "train", b,
+                                           RECSYS_SEED + 10 + i), dev)
+                   for i in range(RECSYS_TRAIN_STEPS)]
+        losses, ms = [], []
+        for batch in batches:
+            out = {}
+
+            def call():
+                out["state"], out["m"] = step(state, batch)
+            ms.append(timed_calls(call, 1)[0])
+            losses.append(float(out["m"]["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and int(state.step) ==
+              RECSYS_TRAIN_STEPS, f"12c {arch} every loss finite ({losses})")
+        warm = float(np.median(ms[1:]))
+        flops = spec.model_flops_fn(cfg, cell)
+        recs.append({
+            "arch": arch, "batch": b, "reduced": reduced, "losses": losses,
+            "step_ms": [round(x, 3) for x in ms],
+            "warm_step_ms_median": round(warm, 3),
+            "examples_per_s": round(b / warm * 1e3, 1),
+            "model_flops_per_step": flops,
+            "mfu_bf16_peak": flops / (warm / 1e3) / BF16_PEAK_FLOPS,
+            "max_memory_allocated": peak,
+            "param_count": sum(x.numel() for x in tree_leaves(state.params))})
+        del state, batches, out
+    launches = read_launches()
+    check(not any(launches.values()),
+          "12c the recsys path launches none of the gene-search kernels")
+    torch.cuda.empty_cache()
+    print(f"phase 12c recsys training: ok ({nvidia_smi()}) — full configs, "
+          f"f32 parameters and AdamW moments, TF32 off, train_batch 65,536 "
+          f"through the registry's step_fn, {RECSYS_TRAIN_STEPS} steps each "
+          f"(0 cold), every loss finite; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; " + json.dumps(recs))
+    return {"cells": recs}
+
+
+# -- phase 13: the EquiformerV2 GNN, trained -------------------------------
+
+EQ_CHECK_LAYERS = 2                  # 13a: full widths, 2 of 12 layers
+EQ_CHECK_NODES, EQ_CHECK_EDGES = 64, 256
+EQ_STEPS = 4                         # 13b-d: 0 cold, 1-2 timed, 3 profiled
+EQ_ROT_REPS = 3                      # edge-rotation stage timings
+MINIBATCH_LAYERS = 2                 # 13d: depth cut from 12 (memory)
+MINIBATCH_SEEDS = 1024               # minibatch_lg: 15-10 fanout from 1,024
+MINIBATCH_FANOUT = [15, 10]
+REDDIT_NODES = 232_965               # minibatch_lg's graph (Reddit)
+REDDIT_FULL_EDGES = 114_615_892
+REDDIT_EDGES = REDDIT_FULL_EDGES // 10   # cut for the host CSR build
+EQ_SEED = 0
+
+
+def random_rotation(seed: int) -> torch.Tensor:
+    """A 3x3 rotation: QR of a gaussian, det fixed to +1."""
+    q, r = np.linalg.qr(np.random.default_rng(seed).normal(size=(3, 3)))
+    q = q * np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    return torch.from_numpy(q.astype(np.float32))
+
+
+def equiformer_card_vs_cpu_phase(dev) -> dict:
+    """Phase 13a: the Equiformer at full widths (d_hidden 128, l_max 6,
+    m_max 2, 8 heads) cut to ``EQ_CHECK_LAYERS`` layers, 8 classes, remat
+    on, f32 with TF32 off, on a ``synth_graph`` of ``EQ_CHECK_NODES``
+    nodes: the same seeded weights on the card and the CPU, loss within
+    rtol 1e-3 and each gradient leaf within 1e-3 of its max |g|; on the
+    card, the outputs invariant under a global rotation of the positions
+    (rtol and atol 2e-3)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import graph_pipeline
+    from repro_torch.models import equiformer as eq
+    from repro_torch.train import train_state as ts
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("equiformer-v2").make_config(),
+                              n_layers=EQ_CHECK_LAYERS, n_classes=8)
+    check(cfg.remat, "13a trains with remat on")
+    host = graph_pipeline.full_batch(graph_pipeline.synth_graph(
+        EQ_CHECK_NODES, EQ_CHECK_EDGES, n_classes=8, seed=EQ_SEED))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    try:
+        params = {"cpu": eq.equiformer_init(EQ_SEED, cfg, device="cpu")}
+        params[dev] = tree_map(lambda p: p.to(dev), params["cpu"])
+
+        def loss_fn(p, b):
+            return eq.equiformer_loss(p, b, cfg)
+        out = {w: ts.value_and_grad(loss_fn, params[w], on_device(host, w))
+               for w in ("cpu", dev)}
+        (closs, _, cgrad), (gloss, _, ggrad) = out["cpu"], out[dev]
+        check(torch.allclose(gloss.cpu(), closs, rtol=1e-3, atol=0),
+              f"13a loss on the card == CPU within rtol 1e-3 ({float(gloss)} "
+              f"vs {float(closs)})")
+        errs = grad_rel_errs(cgrad, ggrad)
+        for name, e in errs.items():
+            check(e <= 1e-3, f"13a gradient {name} on the card within 1e-3 "
+                  f"of its max |g| ({e})")
+        batch = on_device(host, dev)
+        with torch.no_grad():
+            out1 = eq.equiformer_forward(params[dev], batch, cfg)
+            rotated = dict(batch, positions=batch["positions"]
+                           @ random_rotation(5).T.to(dev))
+            out2 = eq.equiformer_forward(params[dev], rotated, cfg)
+        inv_err = float((out1 - out2).abs().max())
+        check(torch.allclose(out1, out2, rtol=2e-3, atol=2e-3),
+              f"13a outputs on the card invariant under a rotation of the "
+              f"positions within 2e-3 ({inv_err})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = read_launches()
+    check(not any(launches.values()),
+          "13a the GNN path launches none of the gene-search kernels")
+    rec = {"loss_rel_err": abs(float(gloss) - float(closs)) / abs(
+        float(closs)), "grad_max_rel_err": max(errs.values()),
+        "rotation_invariance_max_abs_err": inv_err,
+        "wall_s": round(time.perf_counter() - t_phase, 3)}
+    print(f"phase 13a equiformer card vs CPU: ok ({nvidia_smi()}) — full "
+          f"widths (d_hidden {cfg.d_hidden}, l_max {cfg.l_max}, m_max "
+          f"{cfg.m_max}, {cfg.n_heads} heads), {cfg.n_layers} layers, remat, "
+          f"f32, TF32 off, {EQ_CHECK_NODES} nodes / {EQ_CHECK_EDGES} edges: "
+          f"loss rtol 1e-3, gradients within 1e-3 of each leaf's max, "
+          f"rotation invariance on the card within 2e-3; " + json.dumps(rec))
+    return rec
+
+
+def edge_rotation_stage(ccfg, batch) -> dict:
+    """The edge-rotation stage alone (``rotation_to_z`` + the Wigner
+    recursion, once per forward): median host ms of ``EQ_ROT_REPS``
+    synced calls, and the device kernels of one call under the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import equiformer as eq
+
+    args = (batch["positions"], batch["src"].long(), batch["dst"].long(), ccfg)
+    ms = timed_calls(lambda: eq._edge_rotations(*args), EQ_ROT_REPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eq._edge_rotations(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return {"edge_rotation_ms": [round(x, 3) for x in ms],
+            "edge_rotation_ms_median": round(float(np.median(ms)), 3),
+            "edge_rotation_kernels": sum(e.count for e in kernels)}
+
+
+def equiformer_cell_phase(label: str, cell_name: str, host_batch: dict,
+                          n_layers: int, reduced: list, dev,
+                          setup_s: float) -> dict:
+    """Phases 13b-13d: the Equiformer's ``full_config`` (``n_layers`` of
+    its 12 layers; d_hidden 128, l_max 6, m_max 2, 8 heads, remat) in f32
+    with TF32 off, on the cell's config (its ``d_feat`` and classes),
+    ``EQ_STEPS`` AdamW steps through the registry's ``step_fn``: every
+    loss finite, the median warm step, the edge-rotation stage alone, the
+    peak device memory and the device's busy share over the last step
+    under ``torch.profiler``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.models import equiformer as eq
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    t_phase = time.perf_counter()
+    spec = configs.get("equiformer-v2")
+    cfg = dataclasses.replace(spec.make_config(), n_layers=n_layers)
+    check(cfg.remat and not torch.backends.cuda.matmul.allow_tf32,
+          f"{label} trains with remat on, f32 without TF32")
+    cell = spec.shapes[cell_name]
+    ccfg = equiformer_v2.cell_config(cfg, cell)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    batch = on_device(host_batch, dev)
+    n, e = batch["node_mask"].shape[0], batch["src"].shape[0]
+    state = ts.TrainState.create(eq.equiformer_init(EQ_SEED, ccfg, device=dev),
+                                 opt_mod.adamw(1e-3))
+    step = spec.step_fn(cfg, cell)
+    reset_launches()
+    losses, ms, prof = [], [], {}
+    for i in range(EQ_STEPS):
+        if i == EQ_STEPS - 1:
+            (out, prof["wall_ms"], prof["busy_ms"], prof["kernels"],
+             prof["top"]) = profiled_step(step, state, batch)
+        else:
+            out = {}
+
+            def call():
+                out["r"] = step(state, batch)
+            ms.append(timed_calls(call, 1)[0])
+            out = out["r"]
+        state, m = out
+        losses.append(float(m["loss"]))
+    rot = edge_rotation_stage(ccfg, batch)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    check(len(losses) == EQ_STEPS and all(np.isfinite(losses)),
+          f"{label} every loss finite ({losses})")
+    check(not any(launches.values()),
+          f"{label} the GNN path launches none of the gene-search kernels")
+    check((n, e) == (cell.meta["nodes"], cell.meta["edges"]),
+          f"{label} the batch has the cell's {cell.meta['nodes']} nodes and "
+          f"{cell.meta['edges']} edges")
+    warm = float(np.median(ms[1:]))
+    flops = spec.model_flops_fn(ccfg, cell)
+    rec = {
+        "cell": cell_name, "layers": f"{n_layers} of 12", "nodes": n,
+        "edges": e, "real_edges": int(host_batch["edge_mask"].sum()),
+        "real_nodes": int(host_batch["node_mask"].sum()),
+        "d_feat": ccfg.d_feat, "classes": ccfg.n_classes,
+        "reduced": reduced, "host_setup_s": round(setup_s, 3),
+        "losses": losses, "step_ms": [round(x, 3) for x in ms],
+        "warm_step_ms_median": round(warm, 3),
+        **rot,
+        "edge_rotation_share_of_step": round(
+            rot["edge_rotation_ms_median"] / warm, 4),
+        "model_flops_per_step": flops,
+        "mfu_bf16_peak": flops / (warm / 1e3) / BF16_PEAK_FLOPS,
+        "max_memory_allocated": peak,
+        "profiled_step_wall_ms": round(prof["wall_ms"], 3),
+        "profiled_step_device_busy_ms": round(prof["busy_ms"], 3),
+        "device_busy_share": round(prof["busy_ms"] / prof["wall_ms"], 4),
+        "profiled_step_kernels": prof["kernels"],
+        "top_device_ops": prof["top"],
+        "wall_s": round(time.perf_counter() - t_phase, 3)}
+    del state, batch, out
+    torch.cuda.empty_cache()
+    print(f"phase {label} equiformer {cell_name}: ok ({nvidia_smi()}) — "
+          f"full widths, {rec['layers']} layers, remat, f32, TF32 off, "
+          f"{n} nodes / {e} edges, {EQ_STEPS} AdamW steps through the "
+          f"registry's step_fn, every loss finite; "
+          + json.dumps(rec, sort_keys=True))
+    return rec
+
+
+def equiformer_phases(dev) -> list:
+    """Phases 13b-13d, each at its cell's sizes: ``full_graph_sm`` (a
+    Cora-sized ``synth_graph`` with 1,433 features and 7 classes),
+    ``molecule`` (128 graphs of 30 nodes / 64 edges) and ``minibatch_lg``
+    (one 15-10 fanout batch from 1,024 seeds of a 232,965-node graph,
+    padded to the cell's nodes and edges, at ``MINIBATCH_LAYERS``
+    layers). ``ogb_products`` does not run: one (E, 49, 128) f32 edge
+    tensor at its 61.9M edges is 1.55 TB."""
+    from repro_torch import configs
+    from repro_torch.data import graph_pipeline
+
+    shapes = configs.get("equiformer-v2").shapes
+    recs = []
+    meta = shapes["full_graph_sm"].meta
+    t0 = time.perf_counter()
+    g = graph_pipeline.synth_graph(meta["nodes"], meta["edges"],
+                                   d_feat=meta["d_feat"],
+                                   n_classes=meta["classes"], seed=EQ_SEED)
+    recs.append(equiformer_cell_phase(
+        "13b", "full_graph_sm", graph_pipeline.full_batch(g), 12, [], dev,
+        time.perf_counter() - t0))
+    meta = shapes["molecule"].meta
+    t0 = time.perf_counter()
+    mol = graph_pipeline.molecule_batch(
+        meta["graphs"], meta["nodes"] // meta["graphs"],
+        meta["edges"] // meta["graphs"], seed=EQ_SEED)
+    recs.append(equiformer_cell_phase("13c", "molecule", mol, 12, [], dev,
+                                      time.perf_counter() - t0))
+    meta = shapes["minibatch_lg"].meta
+    t0 = time.perf_counter()
+    g = graph_pipeline.synth_graph(REDDIT_NODES, REDDIT_EDGES,
+                                   n_classes=meta["classes"], seed=EQ_SEED)
+    loader = graph_pipeline.FanoutLoader(g, MINIBATCH_SEEDS, MINIBATCH_FANOUT,
+                                         meta["nodes"], meta["edges"],
+                                         seed=EQ_SEED)
+    batch = loader.next_batch()
+    del g, loader
+    recs.append(equiformer_cell_phase(
+        "13d", "minibatch_lg", batch, MINIBATCH_LAYERS,
+        [f"depth 12 -> {MINIBATCH_LAYERS} layers (remat keeps one "
+         f"(N, 49, 128) f32 node tensor a layer, 4.26 GB, but one layer's "
+         f"recompute and backward hold ~60 GB: its saved edge and node "
+         f"tensors and the gradient buffers, 4.2 GB each; 4 layers ran out "
+         f"of the card's 80 GB)",
+         f"graph edges {REDDIT_FULL_EDGES} -> {REDDIT_EDGES} (Reddit's "
+         f"edge count cut 10x for the host CSR build; ~49 in-edges a node "
+         f"still saturate the 15-10 fanout, so the padded batch keeps the "
+         f"cell's shape)"],
+        dev, time.perf_counter() - t0))
+    return recs
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--fabric-gateway"]:
         fabric_gateway(sys.argv[2])     # phase 8's gateway process
@@ -3390,6 +4026,12 @@ def main() -> None:
     lm_train_phase("11b", LM_MOE, None, TRAIN_MOE_BATCH, dev, checkpoint=True)
     lm_train_phase("11c", LM_DENSE, LM_DENSE_LAYERS, TRAIN_DENSE_BATCH, dev,
                    checkpoint=False)
+    free_card()                     # 11c's train state, held by a cycle
+    recsys_card_vs_cpu_phase(dev)
+    recsys_serve_phase(dev)
+    recsys_train_phase(dev)
+    equiformer_card_vs_cpu_phase(dev)
+    equiformer_phases(dev)
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

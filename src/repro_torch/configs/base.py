@@ -12,7 +12,11 @@ Port of the registry half of :mod:`repro.configs.base`. An
 
 The reference's mesh and ``PartitionSpec`` fields and its ``input_specs``
 / ``abstract_state`` (``ShapeDtypeStruct`` stand-ins for its dry run) have
-no counterpart yet. :func:`all_archs` answers the archs the port has.
+no counterpart yet. The families are those of the reference: ``lm`` (five
+transformer archs), ``recsys`` (fm, sasrec, two-tower-retrieval, mind),
+``gnn`` (equiformer-v2) and ``genesearch`` (idl-genesearch, serve-only);
+:func:`all_archs` lists the same 11 names as the reference's. A family's
+modules are imported on the first registry lookup, not with the package.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ class ShapeCell:
 @dataclasses.dataclass
 class ArchSpec:
     name: str
-    family: str               # "lm" | "genesearch"
+    family: str               # "lm" | "gnn" | "recsys" | "genesearch"
     make_config: Callable[[], Any]
     make_smoke_config: Callable[[], Any]
     shapes: dict[str, ShapeCell]
@@ -67,6 +71,7 @@ def all_archs() -> list[str]:
 def _ensure_loaded() -> None:
     # import side-effect registration, deferred to avoid cycles
     from repro_torch.configs import (  # noqa: F401
-        arctic_480b, granite_20b, granite_moe_1b_a400m, idl_genesearch,
-        internlm2_20b, nemotron_4_340b,
+        arctic_480b, equiformer_v2, fm, granite_20b, granite_moe_1b_a400m,
+        idl_genesearch, internlm2_20b, mind, nemotron_4_340b, sasrec,
+        two_tower_retrieval,
     )

@@ -48,6 +48,23 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     return (w * 0.02).to(dtype)
 
 
+def unstack(stacked: Params, n: int) -> list:
+    """Every slice (views) of a tree whose leaves are stacked on axis 0
+    (the per-layer leaves of the reference's ``vmap``ped inits), through
+    one ``unbind`` a leaf: under autograd each stacked leaf's gradient is
+    then one stack of the slices' gradients, not a full-size sum a
+    slice."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v, 0)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(n)]
+
+
 # --------------------------------------------------------------------------
 # norms
 # --------------------------------------------------------------------------

@@ -227,21 +227,6 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens].to(params["ln_f"].dtype)
 
 
-def _unstack(stacked: Params, n_layers: int) -> list:
-    """Every layer's slice (views) of the stacked layer tree, through one
-    ``unbind`` a leaf: under autograd each stacked leaf's gradient is then
-    one stack of the per-layer gradients, not a full-size sum a layer."""
-    def split(tree):
-        return {k: split(v) if isinstance(v, dict) else torch.unbind(v, 0)
-                for k, v in tree.items()}
-
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    parts = split(stacked)
-    return [pick(parts, i) for i in range(n_layers)]
-
-
 def lm_hidden(params: Params, tokens: torch.Tensor,
               cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (final hidden (B, S, d), moe aux loss).
@@ -252,7 +237,7 @@ def lm_hidden(params: Params, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in _unstack(params["layers"], cfg.n_layers):
+    for lp in layers.unstack(params["layers"], cfg.n_layers):
         if remat:
             x, a, _, _ = torch_checkpoint.checkpoint(
                 _block, cfg, lp, x, positions, use_reentrant=False)

@@ -777,3 +777,74 @@ def test_lm_train_step_card_vs_cpu(cuda, no_tf32):
     for g, c in zip(opt_mod.tree_leaves(gs.params),
                     opt_mod.tree_leaves(cs.params)):
         assert float((g.cpu() - c).abs().max()) <= 2 * lr * 1.001 + 1e-6
+
+
+def _card_vs_cpu(loss_fn, params, batch, cuda):
+    """``loss_fn``'s loss and every gradient leaf on the card against the
+    CPU, f32 with TF32 off: loss rtol 1e-4, each leaf within 1e-4 of its
+    max |g| (``index_add`` adds in no fixed order on the card)."""
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    want, _, wg = ts.value_and_grad(loss_fn, params, batch)
+    got, _, gg = ts.value_and_grad(loss_fn, _to(params, cuda),
+                                   _to(batch, cuda))
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+    for g, w in zip(opt_mod.tree_leaves(gg), opt_mod.tree_leaves(wg)):
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("scheme", ["none", "idl"])
+def test_recsys_card_vs_cpu(cuda, no_tf32, scheme):
+    """SASRec's smoke config: rows exactly equal on the card and the CPU
+    (negative ids included), scores rtol 1e-4 through the registry's
+    serve step, loss and gradients through ``_card_vs_cpu``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import recsys_pipeline
+    from repro_torch.models import recsys
+
+    spec = configs.get("sasrec")
+    cfg = dataclasses.replace(spec.make_smoke_config(), hash_scheme=scheme)
+    params = recsys.sasrec_init(0, cfg, device="cpu")
+    gen = recsys_pipeline.SessionGenerator(recsys_pipeline.RecsysSynthConfig(
+        n_items=cfg.n_items, session_len=cfg.seq_len, seed=3))
+    batch = {k: torch.from_numpy(v) for k, v in gen.sasrec_batch(8).items()}
+    batch["pos"][:, :2] = -1
+    rows = recsys.hash_rows(batch["seq"] - 40, cfg.n_items, scheme)
+    assert torch.equal(recsys.hash_rows(batch["seq"].to(cuda) - 40,
+                                        cfg.n_items, scheme).cpu(), rows)
+    serve = {"seq": batch["seq"], "cands": batch["neg"][:, :10]}
+    step = spec.step_fn(cfg, spec.shapes["serve_p99"])
+    torch.testing.assert_close(step(_to(params, cuda), _to(serve, cuda)).cpu(),
+                               step(params, serve), rtol=1e-4, atol=1e-6)
+    _card_vs_cpu(lambda p, b: recsys.sasrec_loss(p, b, cfg), params, batch,
+                 cuda)
+
+
+@pytest.mark.parametrize("task", ["node_cls", "regression"])
+def test_equiformer_card_vs_cpu(cuda, no_tf32, task):
+    """The Equiformer's smoke config with remat on: a padded fanout batch
+    (8 classes) or four molecules, loss and gradients through
+    ``_card_vs_cpu``."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import graph_pipeline
+    from repro_torch.models import equiformer as eq
+
+    cfg = dataclasses.replace(
+        configs.get("equiformer-v2").make_smoke_config(), remat=True,
+        n_classes=8 if task == "node_cls" else 0)
+    params = eq.equiformer_init(0, cfg, device="cpu")
+    if task == "node_cls":
+        g = graph_pipeline.synth_graph(512, 4096, n_classes=8, seed=3)
+        batch = graph_pipeline.FanoutLoader(g, 8, [5, 5], 256, 512,
+                                            seed=3).next_batch()
+    else:
+        batch = graph_pipeline.molecule_batch(4, 12, 24, seed=3)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _card_vs_cpu(lambda p, b: eq.equiformer_loss(p, b, cfg), params, batch,
+                 cuda)

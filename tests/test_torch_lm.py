@@ -440,13 +440,14 @@ def test_top_k_breaks_ties_like_lax_top_k():
 # --------------------------------------------------------------------------
 
 def test_registry_holds_the_ported_archs():
-    assert set(configs.all_archs()) == {
-        "arctic-480b", "granite-moe-1b-a400m", "granite-20b",
-        "nemotron-4-340b", "internlm2-20b", "idl-genesearch"}
+    """Every arch of the reference's registry, each in its family."""
+    assert configs.all_archs() == j_configs.all_archs()
     assert {a: configs.get(a).family for a in configs.all_archs()} == {
-        **{a: "lm" for a in LM_ARCHS}, "idl-genesearch": "genesearch"}
+        **{a: "lm" for a in LM_ARCHS}, "idl-genesearch": "genesearch",
+        "equiformer-v2": "gnn", **{a: "recsys" for a in (
+            "fm", "sasrec", "two-tower-retrieval", "mind")}}
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get("equiformer-v2")
+        configs.get("no-such-arch")
 
 
 def _fields(cfg) -> dict:

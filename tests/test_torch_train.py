@@ -809,14 +809,41 @@ def test_train_launcher_runs_on_the_cpu(tmp_path):
 
 
 def test_train_launcher_refuses_other_families():
-    with pytest.raises(SystemExit, match="14c"):
-        train_launcher.main(["--arch", "sasrec", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="14d"):
-        train_launcher.main(["--arch", "equiformer-v2", "--device", "cpu"])
+    """Only the serve-only family and unknown archs are refused; the port
+    trains exactly the reference's trainable archs (every family but
+    ``genesearch``)."""
     with pytest.raises(SystemExit, match="serve-only"):
         train_launcher.main(["--arch", "idl-genesearch", "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown arch"):
         train_launcher.main(["--arch", "no-such-arch", "--device", "cpu"])
-    trainable = {a for a in j_configs.all_archs()
-                 if j_configs.get(a).family != "genesearch"}
-    assert trainable == set(LM_ARCHS) | set(train_launcher.NOT_PORTED)
+    want = {a for a in j_configs.all_archs()
+            if j_configs.get(a).family != "genesearch"}
+    got = {a for a in configs.all_archs()
+           if configs.get(a).family in train_launcher.RUNNERS}
+    assert got == want
+    assert not hasattr(train_launcher, "NOT_PORTED")
+
+
+@pytest.mark.parametrize("arch", ["fm", "equiformer-v2"])
+def test_train_launcher_trains_recsys_and_gnn(arch, capsys):
+    """``--device cpu`` trains a recsys arch and the GNN for a few steps
+    in process; every logged loss is finite."""
+    train_launcher.main(["--arch", arch, "--device", "cpu", "--steps", "4",
+                         "--batch", "8"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].startswith(f"done: {arch} loss ")
+    first, last = (float(x) for x in lines[-1].split("loss ")[1].split(" -> "))
+    assert np.isfinite(first) and np.isfinite(last)
+
+
+def test_train_launcher_recsys():
+    """The port's counterpart of ``tests/test_launchers.py::
+    test_train_launcher_recsys``: ``fm`` for 10 steps at batch 32, as a
+    subprocess on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "fm",
+         "--device", "cpu", "--steps", "10", "--batch", "32"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-1500:]
+    assert "done: fm" in out.stdout
