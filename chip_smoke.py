@@ -120,7 +120,7 @@ reference package) and runs these phases, printing one line each:
    second, the prefill's model-FLOP share of 989 TFLOP/s and the peak
    device memory;
 11. the LM family's training path, plain PyTorch (autograd, remat through
-   ``torch.utils.checkpoint``, chunked loss, AdamW; no kernel of
+   the port's ``remat.checkpoint``, chunked loss, AdamW; no kernel of
    ``csrc/``: the path must launch none): 11a ``granite-moe-1b-a400m`` at
    full width cut to 2 layers, f32 with TF32 off, remat on, a 2 x 128
    batch of the ``idl`` dedup pipeline: ``lm_loss`` and its gradients on
@@ -173,11 +173,32 @@ reference package) and runs these phases, printing one line each:
    ``step_fn`` each, the median warm step, the edge-rotation stage
    alone (ms and kernels), the peak memory and the device's busy share
    over the last step under ``torch.profiler``. ``ogb_products`` does not
-   run (one edge tensor at its 61.9M edges is 1.55 TB).
+   run (one edge tensor at its 61.9M edges is 1.55 TB);
+14. the last modules, plain PyTorch (the phase must launch none of the
+   kernels): 14a ``quantize_int8`` on a seeded (4096, 4096) f32 tensor,
+   card against CPU (``q`` equal, ``scale`` bit for bit), one
+   ``compress_with_feedback`` round (residual within 1e-6 of its max),
+   and ``granite-moe-1b-a400m`` at full width, 2 layers, f32, TF32 off,
+   3 AdamW steps through ``make_train_step`` with
+   ``make_compression("int8")``, card against CPU within 11a's bounds;
+   14b those card steps run with the cyclic collector off, and once their
+   state and outputs are dropped ``memory_allocated`` must be back within
+   64 MiB of its value before them (and after 11c, with ``free_card``
+   collecting nothing, within 64 MiB of the level before 11b); 14c a
+   one-process NCCL group, ``make_host_mesh()``, and SASRec's full serve
+   state distributed by ``tree_shardings`` (every local shard equal to
+   its leaf), the group destroyed after; 14d the dry run's counters at one
+   device for FM's and SASRec's ``serve_p99`` (12b) and the Equiformer's
+   ``full_graph_sm`` step (13b): ``t_compute``, ``t_memory`` and
+   ``t_bound`` beside the measured medians, failing a median more than 5%
+   under ``t_compute``.
 
 The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
-6, 7c, 9b, 10 (after 9b has freed the card), 11, 12, 13. Phases 8, 9, 11a and
+6, 7c, 9b, 10 (after 9b has freed the card), 11, 12, 13, 14. Before
+phase 2 it profiles one tiny operation, so ``torch.profiler``'s lazy
+imports, which would keep the stack they run under in a reference cycle,
+happen outside every phase. Phases 8, 9, 11a and
 11b print their temp root's free bytes before they save (8 and 9a write
 8 GiB snapshots, 11b a 13.35 GB checkpoint; too little room fails the
 run) and remove them, and print their wall seconds.
@@ -3211,6 +3232,19 @@ def ckpt_keys(tree: dict) -> list:
     return list(ckpt_mod._flatten_with_paths(tree))
 
 
+def warm_profiler() -> None:
+    """Profile one tiny operation, before any phase. ``torch.profiler``'s
+    first use imports ``torch._dynamo`` lazily, and that import leaves the
+    frames of the stack it ran under in a reference cycle: inside a
+    profiled train step, the loop's frame and its train state, held until
+    the cyclic collector runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
 def profiled_step(step_fn, state, batch) -> tuple:
     """One train step under ``torch.profiler``: (its output, wall ms,
     device busy ms (the kernels' time, the profiler table's "Self CUDA
@@ -3434,10 +3468,10 @@ def recsys_inputs(arch: str, cfg, kind: str, n: int, seed: int) -> dict:
 
 
 def free_card() -> None:
-    """Collect garbage (an earlier phase's tensors held only by a reference
-    cycle) and return the card's cached blocks, so a phase starts on a
-    clear card and its peak memory is its own."""
-    gc.collect()
+    """Return the card's cached blocks, so a phase starts on a clear card
+    and its peak memory is its own. An earlier phase's tensors are freed
+    with their last reference: the port's checkpoints leave no reference
+    cycle (phase 14b checks it with the collector off)."""
     torch.cuda.empty_cache()
 
 
@@ -3965,6 +3999,255 @@ def equiformer_phases(dev) -> list:
         dev, time.perf_counter() - t0))
     return recs
 
+# -- phase 14: int8 compression, the freed train state, the mesh, roofline --
+
+INT8_SIDE = 4096                     # 14a: a (4096, 4096) f32 tensor
+INT8_STEPS = 3                       # 14a: AdamW steps with int8 gradients
+C1_SLACK = 64 << 20                  # 14b / 11c: bytes left after a drop
+ROOFLINE_CELLS = [("fm", "serve_p99"), ("sasrec", "serve_p99"),
+                  ("equiformer-v2", "full_graph_sm")]
+
+
+def int8_card_steps(cfg, params_cpu, batches, loss_fn, dev) -> tuple:
+    """``INT8_STEPS`` int8-compressed AdamW steps of ``loss_fn`` on the
+    card from ``params_cpu``: (losses, final parameters on the CPU). The
+    state and outputs die with this frame."""
+    from repro_torch.distributed import collectives
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    step = ts.make_train_step(
+        loss_fn, opt_mod.adamw(3e-4),
+        grad_compression=collectives.make_compression("int8"))
+    state = ts.TrainState.create(tree_map(lambda p: p.to(dev), params_cpu),
+                                 opt_mod.adamw(3e-4))
+    losses = []
+    for b in batches:
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return losses, tree_map(lambda p: p.cpu(), state.params)
+
+
+def int8_phase(dev) -> dict:
+    """Phases 14a and 14b: ``quantize_int8`` on a seeded (4096, 4096) f32
+    tensor, card against CPU (``q`` equal, ``scale`` bit for bit); one
+    ``compress_with_feedback`` round (residual within 1e-6 of its max);
+    ``granite-moe-1b-a400m`` at full width, ``LM_CHECK_LAYERS`` layers,
+    f32, TF32 off, ``INT8_STEPS`` steps through ``make_train_step`` with
+    ``make_compression("int8")`` on the card and the CPU (losses rtol 1e-3,
+    parameters within ``adamw_bound``, as 11a). 14b: the card's steps run
+    with the cyclic collector off; once their state and outputs are
+    dropped, ``memory_allocated`` must be back within ``C1_SLACK`` of its
+    value before them."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs import lm_common
+    from repro_torch.distributed import collectives
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    gen = torch.Generator().manual_seed(LM_SEED)
+    x = torch.randn((INT8_SIDE, INT8_SIDE), generator=gen)
+    q_cpu, s_cpu = collectives.quantize_int8(x)
+    q_dev, s_dev = collectives.quantize_int8(x.to(dev))
+    check(torch.equal(q_dev.cpu(), q_cpu) and bits_equal(s_dev.cpu(), s_cpu),
+          "14a quantize_int8 on the card == CPU: q equal, scale bit for bit")
+    grads = {"w": x, "b": torch.randn((INT8_SIDE,), generator=gen)}
+    resid = {}
+    for where in ("cpu", dev):
+        ef = collectives.init_error_feedback(
+            tree_map(lambda g: g.to(where), grads))
+        _, ef = collectives.compress_with_feedback(
+            tree_map(lambda g: g.to(where), grads), ef)
+        resid[where] = tree_map(lambda r: r.cpu(), ef.residual)
+    resid_err = max(
+        float((resid[dev][k] - resid["cpu"][k]).abs().max())
+        / max(float(resid["cpu"][k].abs().max()), 1e-30) for k in grads)
+    check(resid_err <= 1e-6, f"14a compress_with_feedback residual on the "
+          f"card within 1e-6 of its max ({resid_err})")
+    del x, q_cpu, s_cpu, q_dev, s_dev, grads, resid, ef
+
+    spec = configs.get(LM_MOE)
+    cfg = dataclasses.replace(spec.make_config(), n_layers=LM_CHECK_LAYERS)
+    cell = dataclasses.replace(spec.shapes["train_4k"], meta={
+        "seq": TRAIN_CHECK_SEQ, "batch": TRAIN_CHECK_BATCH})
+    nchunks = lm_common.loss_chunks_for(cell)
+
+    def loss_fn(p, b):
+        return tf.lm_loss(p, b, cfg, loss_chunks=nchunks)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc_was = gc.isenabled()
+    try:
+        params = tf.lm_init(LM_SEED, cfg, device="cpu").params()
+        pipe, _ = lm_train_pipeline(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                                    "cpu")
+        batches = [{k: torch.from_numpy(v) for k, v in
+                    pipe.next_batch().items()} for _ in range(INT8_STEPS)]
+        step = ts.make_train_step(
+            loss_fn, opt_mod.adamw(3e-4),
+            grad_compression=collectives.make_compression("int8"))
+        state = ts.TrainState.create(tree_map(torch.clone, params),
+                                     opt_mod.adamw(3e-4))
+        cpu_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            cpu_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        gc.disable()
+        before = torch.cuda.memory_allocated()
+        card_losses, card_params = int8_card_steps(cfg, params, batches,
+                                                   loss_fn, dev)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        if gc_was:
+            gc.enable()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(np.allclose(card_losses, cpu_losses, rtol=1e-3, atol=0),
+          f"14a {INT8_STEPS} int8-compressed AdamW steps' losses on the card "
+          f"== CPU within rtol 1e-3 ({card_losses} vs {cpu_losses})")
+    step_err = max(max_abs_err(g, c) for c, g in zip(
+        tree_leaves(state.params), tree_leaves(card_params)))
+    bound = adamw_bound(3e-4, INT8_STEPS)
+    check(step_err <= bound, f"14a parameters after {INT8_STEPS} int8 steps "
+          f"within {bound} ({step_err})")
+    print(f"phase 14b memory_allocated before the card's int8 steps "
+          f"{before}, after their state and outputs were dropped with the "
+          f"collector off {after}")
+    check(after - before <= C1_SLACK, f"14b the train state is freed without "
+          f"the cyclic collector ({after - before} bytes left, at most "
+          f"{C1_SLACK})")
+    launches = read_launches()
+    check(not any(launches.values()),
+          "14a/14b launch none of the gene-search kernels")
+    rec = {"q_equal": True, "scale_bits_equal": True,
+           "ef_residual_rel_err": resid_err, "losses_card": card_losses,
+           "losses_cpu": cpu_losses, "params_max_abs_err": step_err,
+           "params_bound": bound, "memory_allocated_before": before,
+           "memory_allocated_after_drop": after,
+           "wall_s": round(time.perf_counter() - t_phase, 3)}
+    print(f"phase 14a/14b int8 compression and the freed train state: ok — "
+          f"quantize_int8 on ({INT8_SIDE}, {INT8_SIDE}) f32, {LM_MOE} full "
+          f"width, {cfg.n_layers} layers, f32, TF32 off, {INT8_STEPS} "
+          f"int8-compressed AdamW steps card vs CPU; " + json.dumps(rec))
+    return rec
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 14c: a one-process NCCL group (a local ``HashStore``),
+    ``make_host_mesh()`` over the card, and SASRec's full-config serve
+    state distributed by ``tree_shardings``: every local shard is the
+    whole leaf on the card, equal to the source. The group is destroyed
+    at the end."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import recsys
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    spec = configs.get("sasrec")
+    cfg = spec.make_config()
+    cell = spec.shapes["serve_p99"]
+    params = recsys.sasrec_init(RECSYS_SEED, cfg, device=dev)
+    check(list(base.tree_paths(params)) == list(base.tree_paths(
+        spec.abstract_state(cfg, cell))), "14c the serve state's paths are "
+          "abstract_state's")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        shardings = base.tree_shardings(
+            mesh, params, lambda p, s: spec.state_spec_fn(cfg, p, s))
+        leaves = base.tree_paths(params)
+        sharded = 0
+        for path, leaf in leaves.items():
+            placements = shardings[path].placements
+            local = distribute_tensor(leaf, mesh, list(placements)).to_local()
+            check(local.device == leaf.device and torch.equal(local, leaf),
+                  f"14c {path}: the local shard is the whole leaf on the card")
+            sharded += any(isinstance(p, Shard) for p in placements)
+        mesh_shape = tuple(mesh.shape)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "14c the group is destroyed")
+    launches = read_launches()
+    check(not any(launches.values()),
+          "14c launches none of the gene-search kernels")
+    rec = {"mesh": mesh_shape, "leaves": len(leaves),
+           "leaves_with_shard_placements": sharded,
+           "wall_s": round(time.perf_counter() - t_phase, 3)}
+    print(f"phase 14c the mesh on the card: ok — make_host_mesh() over an "
+          f"NCCL group of 1, SASRec's full serve state distributed by "
+          f"tree_shardings, every local shard equal to its leaf; "
+          + json.dumps(rec))
+    return rec
+
+
+def roofline_phase(serve: dict, eq_recs: list) -> dict:
+    """Phase 14d: the dry run's counters (``count_cell`` on meta tensors)
+    at one device for FM's and SASRec's ``serve_p99`` (timed by 12b) and
+    the Equiformer's ``full_graph_sm`` train step (timed by 13b), beside
+    the measured medians. ``t_compute`` charges the counted FLOPs at the
+    bf16 dense peak while these cells run f32, so it is a lower bound: a
+    measured time more than 5% under it fails (a miscount). ``t_memory``
+    counts every operator's bytes unfused, so L2 hits can beat it: a
+    measured time under it is printed as the count's overstatement."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    measured = {(r["arch"], r["cell"]): r["warm_ms_median"]
+                for r in serve["cells"] if r["hash_scheme"] == "none"}
+    measured.update({("equiformer-v2", r["cell"]): r["warm_step_ms_median"]
+                     for r in eq_recs})
+    rows = []
+    for arch, cell_name in ROOFLINE_CELLS:
+        spec = configs.get(arch)
+        cfg = spec.make_config()
+        cell = spec.shapes[cell_name]
+        counts = dryrun.count_cell(spec, cfg, cell)
+        roof = analysis.Roofline(
+            arch=arch, shape=cell_name, mesh="one", chips=1,
+            flops_per_chip=counts["flops"], bytes_per_chip=counts["bytes"],
+            coll_bytes_per_chip=None, coll_breakdown={},
+            model_flops=spec.model_flops_fn(cfg, cell))
+        ms = measured[arch, cell_name]
+        t_ms = {k: 1e3 * getattr(roof, k)
+                for k in ("t_compute", "t_memory", "t_bound")}
+        check(ms >= 0.95 * t_ms["t_compute"],
+              f"14d {arch} {cell_name}: measured {ms} ms is not more than 5% "
+              f"under t_compute {t_ms['t_compute']} ms")
+        rows.append({"arch": arch, "cell": cell_name, "measured_ms": ms,
+                     "t_compute_ms": t_ms["t_compute"],
+                     "t_memory_ms": t_ms["t_memory"],
+                     "t_bound_ms": t_ms["t_bound"],
+                     "bottleneck": roof.bottleneck,
+                     "flops": counts["flops"], "bytes": counts["bytes"],
+                     "count_source": counts["count_source"],
+                     "measured_over_t_bound": ms / t_ms["t_bound"],
+                     "t_memory_overstated_by": (
+                         t_ms["t_memory"] / ms if ms < t_ms["t_memory"]
+                         else None)})
+    launches = read_launches()
+    check(not any(launches.values()),
+          "14d launches none of the gene-search kernels")
+    print(f"phase 14d roofline against the card: ok ({nvidia_smi()}) — "
+          f"counts at one device on meta tensors, peaks "
+          f"{analysis.PEAK_FLOPS:.3e} FLOP/s bf16 and {analysis.HBM_BW:.3e} "
+          f"B/s, every measured median at or above 0.95 t_compute; wall "
+          f"{time.perf_counter() - t_phase:.3f} s; " + json.dumps(rows))
+    return {"cells": rows}
+
 
 def main() -> None:
     if sys.argv[1:2] == ["--fabric-gateway"]:
@@ -3983,6 +4266,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind, count = build_phase()
+    warm_profiler()
     small_shapes_phase(dev)
     cfg = idl_genesearch.full_config()
     archive = genome.synth_archive(cfg.n_files, genome_len=GENOME_LEN,
@@ -4023,15 +4307,27 @@ def main() -> None:
     lm_serve_phase("10c", LM_DENSE, LM_DENSE_LAYERS, dev)
     torch.cuda.empty_cache()
     lm_train_card_vs_cpu_phase(dev)
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated()
     lm_train_phase("11b", LM_MOE, None, TRAIN_MOE_BATCH, dev, checkpoint=True)
     lm_train_phase("11c", LM_DENSE, LM_DENSE_LAYERS, TRAIN_DENSE_BATCH, dev,
                    checkpoint=False)
-    free_card()                     # 11c's train state, held by a cycle
+    free_card()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"phase 11c memory_allocated before 11b {level}, after 11c's state "
+          f"was dropped {after}")
+    check(after - level <= C1_SLACK, f"11c's train state is freed by its last "
+          f"reference ({after - level} bytes left, at most {C1_SLACK})")
     recsys_card_vs_cpu_phase(dev)
-    recsys_serve_phase(dev)
+    serve = recsys_serve_phase(dev)
     recsys_train_phase(dev)
     equiformer_card_vs_cpu_phase(dev)
-    equiformer_phases(dev)
+    eq_recs = equiformer_phases(dev)
+    free_card()
+    int8_phase(dev)
+    mesh_phase(dev)
+    roofline_phase(serve, eq_recs)
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

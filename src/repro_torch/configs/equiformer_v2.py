@@ -12,17 +12,22 @@ Port of :mod:`repro.configs.equiformer_v2`. Shapes (assignment):
 
 Non-geometric datasets carry synthetic 3D positions: the equivariant
 backbone is unchanged, positions are an input like any other. The
-reference's sharding rules and its ``input_specs`` / ``abstract_state``
-have no counterpart on one card yet (ROADMAP item 14e).
+sharding rules are the reference's: edges over the whole mesh, nodes over
+('pod','data'), weights' trailing matmul dims FSDP x TP.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.configs import base
 from repro_torch.models import equiformer as eq
 from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+DP = base.DP_AXES
+ALL = ("pod", "data", "model")   # edge axis shards over the whole mesh
 
 
 def full_config() -> eq.EquiformerConfig:
@@ -67,6 +72,32 @@ def cell_config(cfg: eq.EquiformerConfig,
     )
 
 
+
+def input_specs(cfg: eq.EquiformerConfig, cell: base.ShapeCell) -> dict:
+    n, e = cell.meta["nodes"], cell.meta["edges"]
+    f32, i32 = torch.float32, torch.int32
+    batch = {
+        "positions": base.abstract((n, 3), f32),
+        "src": base.abstract((e,), i32),
+        "dst": base.abstract((e,), i32),
+        "edge_mask": base.abstract((e,), f32),
+        "node_mask": base.abstract((n,), f32),
+        "node_type": base.abstract((n,), i32),
+    }
+    if cell.meta["d_feat"]:
+        batch["node_feat"] = base.abstract((n, cell.meta["d_feat"]), f32)
+    if cell.meta["task"] == "node_cls":
+        batch["labels"] = base.abstract((n,), i32)
+    else:
+        batch["graph_id"] = base.abstract((n,), i32)
+        batch["targets"] = base.abstract((cell.meta["graphs"],), f32)
+    return batch
+
+
+def abstract_state(cfg: eq.EquiformerConfig, cell: base.ShapeCell):
+    params = eq.equiformer_init(0, cell_config(cfg, cell), device="meta")
+    return ts.TrainState.create(params, opt_mod.adamw(1e-3))
+
 def step_fn(cfg: eq.EquiformerConfig, cell: base.ShapeCell):
     """``train_step(state, batch) -> (state, metrics)`` over the cell's
     config (its ``d_feat`` and classes) with AdamW at 1e-3; the state is
@@ -75,6 +106,34 @@ def step_fn(cfg: eq.EquiformerConfig, cell: base.ShapeCell):
     return ts.make_train_step(lambda p, b: eq.equiformer_loss(p, b, ccfg),
                               opt_mod.adamw(1e-3))
 
+
+
+def state_spec(cfg, path: str, shape: tuple) -> tuple:
+    parts = [p for p in path.split("/") if p]
+    if parts and parts[-1] == "step" or len(shape) <= 1:
+        return ()
+    name = parts[-1] if parts[-1] not in ("m",) else (
+        parts[-2] if len(parts) >= 2 else parts[-1]
+    )
+    # so2 mixing and ffn weights: shard the trailing matmul dims
+    if name.startswith("w") and len(shape) >= 2:
+        return (None,) * (len(shape) - 2) + (DP, "model")
+    if name in ("embed", "head"):
+        return (DP, None)
+    return ()
+
+
+def batch_spec(cfg, path: str, shape: tuple) -> tuple:
+    name = path.split("/")[-1]
+    if name in ("src", "dst", "edge_mask"):
+        return (ALL,)
+    if name in ("positions", "node_mask", "node_type", "node_feat", "labels",
+                "graph_id"):
+        return ((*DP,) if len(shape) >= 1 else None,) + (None,) * (
+            len(shape) - 1)
+    if name == "targets":
+        return (DP,)
+    return ()
 
 def model_flops(cfg: eq.EquiformerConfig, cell: base.ShapeCell) -> float:
     # dominant terms: 2 Wigner rotations + SO(2) mixes per edge per layer
@@ -94,6 +153,10 @@ SPEC = base.register(base.ArchSpec(
     make_config=full_config,
     make_smoke_config=smoke_config,
     shapes=shapes(),
+    input_specs=input_specs,
+    abstract_state=abstract_state,
     step_fn=step_fn,
+    state_spec_fn=state_spec,
+    batch_spec_fn=batch_spec,
     model_flops_fn=model_flops,
 ))

@@ -6,7 +6,10 @@ trick. [ICDM'10; paper]
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs import recsys_common
+from repro_torch.configs.base import abstract
 from repro_torch.models import recsys
 
 
@@ -33,6 +36,22 @@ def retrieval(params, batch, cfg):
     return recsys.fm_forward(params, feats, cfg)
 
 
+def train_inputs(cfg, cell):
+    b = cell.meta["batch"]
+    return {"feats": abstract((b, cfg.n_sparse), torch.int32),
+            "labels": abstract((b,), torch.int32)}
+
+
+def score_inputs(cfg, cell):
+    b = cell.meta["batch"]
+    return {"feats": abstract((b, cfg.n_sparse), torch.int32)}
+
+
+def retrieval_inputs(cfg, cell):
+    return {"context": abstract((1, cfg.n_sparse), torch.int32),
+            "cands": abstract((cell.meta["candidates"],), torch.int32)}
+
+
 def model_flops(cfg: recsys.FMConfig, cell) -> float:
     b = cell.meta.get("candidates", cell.meta["batch"])
     fwd = b * cfg.n_sparse * cfg.embed_dim * 4     # sum-square trick
@@ -41,6 +60,9 @@ def model_flops(cfg: recsys.FMConfig, cell) -> float:
 
 SPEC = recsys_common.make_recsys_spec(
     "fm", full_config, smoke_config,
-    loss_fn=recsys.fm_loss, score_fn=score, retrieval_fn=retrieval,
+    init_fn=recsys.fm_init, loss_fn=recsys.fm_loss,
+    score_fn=score, retrieval_fn=retrieval,
+    train_inputs=train_inputs, score_inputs=score_inputs,
+    retrieval_inputs=retrieval_inputs,
     model_flops_fn=model_flops,
 )

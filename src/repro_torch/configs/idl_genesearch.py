@@ -2,8 +2,11 @@
 
 Bit-sliced COBS-style index over 1024 files, queried with batched MSMT
 through the shared query planner (port of
-:mod:`repro.configs.idl_genesearch` without its mesh and sharding
-rules). The hashing scheme is selectable "idl" | "rh".
+:mod:`repro.configs.idl_genesearch`). The hashing scheme is selectable
+"idl" | "rh". The index is (m, F/32) int32 words (the reference's uint32
+words, same bits): rows replicated, the file slice over 'model'. The
+serve step does not call the reference's ``shard`` annotations (a no-op
+on one card).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from repro_torch.configs import base
 from repro_torch.index import query
 from repro_torch.serving import genesearch as gs
 
+DP = base.DP_AXES
 NAME = "idl-genesearch"
 
 
@@ -40,6 +44,15 @@ def shapes() -> dict[str, base.ShapeCell]:
     }
 
 
+
+def input_specs(cfg: gs.GeneSearchConfig, cell: base.ShapeCell) -> dict:
+    return {"queries": base.abstract((cell.meta["batch"], cfg.read_len),
+                                     torch.uint8)}
+
+
+def abstract_state(cfg: gs.GeneSearchConfig, cell: base.ShapeCell):
+    return base.abstract((cfg.m, cfg.file_words), torch.int32)
+
 def step_fn(cfg: gs.GeneSearchConfig, cell: base.ShapeCell):
     """``serve(index (m, F/32) int32, {"queries": (B, read_len) uint8})``
     -> (B, F/32) int32 match masks: batched MSMT through the shared
@@ -53,6 +66,16 @@ def step_fn(cfg: gs.GeneSearchConfig, cell: base.ShapeCell):
         return query.file_match_mask(per_kmer, cfg.theta)
     return serve
 
+
+
+def state_spec(cfg, path: str, shape: tuple) -> tuple:
+    # index (m, n_files/32): rows replicated, file slice over 'model' — the
+    # per-query row gather is then device-local
+    return (None, "model")
+
+
+def batch_spec(cfg, path: str, shape: tuple) -> tuple:
+    return (DP, None)
 
 def model_flops(cfg: gs.GeneSearchConfig, cell: base.ShapeCell) -> float:
     b = cell.meta["batch"]
@@ -69,6 +92,10 @@ SPEC = base.register(base.ArchSpec(
     make_config=full_config,
     make_smoke_config=smoke_config,
     shapes=shapes(),
+    input_specs=input_specs,
+    abstract_state=abstract_state,
     step_fn=step_fn,
+    state_spec_fn=state_spec,
+    batch_spec_fn=batch_spec,
     model_flops_fn=model_flops,
 ))

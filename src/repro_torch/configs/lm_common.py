@@ -10,9 +10,10 @@ functions. Shapes (assignment):
   long_500k    SKIPPED for all five archs: each is pure full-attention GQA
                per its public config (sub-quadratic attention required).
 
-The reference's sharding rules and its ``input_specs`` /
-``abstract_state`` belong to its mesh and dry run and have no counterpart
-on one card.
+Sharding (the reference's rules): TP over 'model' (heads/mlp/experts/
+vocab), FSDP over ('pod','data') (params' d_model dim), batch over
+('pod','data'); KV caches shard batch over DP and seq over 'model'.
+``input_specs`` / ``abstract_state`` give meta tensors.
 """
 
 from __future__ import annotations
@@ -21,9 +22,13 @@ import dataclasses
 
 import torch
 
+from typing import Any
+
 from repro_torch.configs import base
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt_mod, train_state as ts
+
+DP = base.DP_AXES
 
 
 def lm_shapes() -> dict[str, base.ShapeCell]:
@@ -62,6 +67,37 @@ def _serve_cfg(cfg: tf.LMConfig, cell: base.ShapeCell) -> tf.LMConfig:
         return dataclasses.replace(cfg, attn_chunk=1024, remat=False)
     return dataclasses.replace(cfg, remat=False)
 
+
+
+# --------------------------------------------------------------------------
+# input specs / abstract state (meta tensors)
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: tf.LMConfig, cell: base.ShapeCell) -> dict:
+    b, s = cell.meta["batch"], cell.meta["seq"]
+    i32 = torch.int32
+    if cell.kind == "train":
+        return {"tokens": base.abstract((b, s), i32),
+                "labels": base.abstract((b, s), i32)}
+    if cell.meta["mode"] == "prefill":
+        return {"tokens": base.abstract((b, s), i32)}
+    return {"tokens": base.abstract((b,), i32)}
+
+
+def abstract_params(cfg: tf.LMConfig) -> dict:
+    return tf.lm_init(0, cfg, dtype=param_dtype(cfg), device="meta").params()
+
+
+def abstract_state(cfg: tf.LMConfig, cell: base.ShapeCell):
+    params = abstract_params(cfg)
+    if cell.kind == "train":
+        return ts.TrainState.create(params, choose_optimizer(cfg))
+    if cell.meta["mode"] == "prefill":
+        return params
+    b, s = cell.meta["batch"], cell.meta["seq"]
+    # KV caches are bf16 regardless of param dtype (production practice)
+    cache = tf.init_kv_cache(cfg, b, s, dtype=torch.bfloat16, device="meta")
+    return {"params": params, "cache": cache}
 
 def loss_chunks_for(cell: base.ShapeCell) -> int:
     """CE chunk count: ~16k tokens per chunk so the logits buffer stays
@@ -112,6 +148,102 @@ def step_fn(cfg: tf.LMConfig, cell: base.ShapeCell):
     return decode
 
 
+
+# --------------------------------------------------------------------------
+# sharding rules
+# --------------------------------------------------------------------------
+
+_PARAM_RULES: list[tuple[str, Any]] = [
+    # (terminal name, spec for the trailing dims; leading dims -> None)
+    ("embed", (DP, "model")),
+    ("unembed", (DP, "model")),
+    ("wq", (DP, "model")),
+    ("wk", (DP, "model")),
+    ("wv", (DP, "model")),
+    ("wi", (DP, "model")),
+    ("wg", (DP, "model")),
+    ("wo", ("model", DP)),
+    ("router", (DP, None)),
+    ("pos", (None, None)),
+]
+_MOE_RULES: list[tuple[str, Any]] = [
+    # stacked expert weights (L, E, a, b): experts over 'model' (EP)
+    ("wi", ("model", DP, None)),
+    ("wg", ("model", DP, None)),
+    ("wo", ("model", None, DP)),
+]
+# state wrappers stripped so the parameter's path remains
+_WRAPPERS = ("params", "opt_state", "per_param", "mu", "nu", "cache", "state")
+
+
+def param_spec(path: str, shape: tuple) -> tuple:
+    """Partition spec for one LM param leaf, by terminal name."""
+    parts = path.split("/")
+    name = parts[-1]
+    if len(shape) <= 1:
+        return ()
+    rules = _PARAM_RULES
+    if "moe" in parts and "residual" not in parts and len(shape) == 4:
+        rules = _MOE_RULES
+    for key, trailing in rules:
+        if name == key:
+            lead = len(shape) - len(trailing)
+            if lead < 0:
+                trailing = trailing[-len(shape):]
+                lead = 0
+            return (None,) * lead + tuple(trailing)
+    return ()  # ln scales etc: replicate
+
+
+def state_spec(cfg: tf.LMConfig, path: str, shape: tuple) -> tuple:
+    """Spec for TrainState / serve-state leaves (optimizer state mirrors its
+    param's spec; Adafactor's factored stats drop the corresponding axis)."""
+    parts = [p for p in path.split("/") if p]
+    if parts and parts[-1] in ("step", "len", "bias"):
+        return ()
+    if parts and parts[-1] in ("k", "v") and len(shape) == 5:
+        return (None, DP, "model", None, None)   # KV cache (L, B, S, kv, dh)
+    suffix = None
+    if parts and parts[-1] in ("vr", "vc", "m"):
+        suffix = parts[-1]
+        parts = parts[:-1]
+    ppath = "/".join(p for p in parts if p not in _WRAPPERS + ("v",))
+    if suffix is None:
+        return param_spec(ppath, shape)
+    pspec = param_spec(ppath, shape + (1,))  # parent has one more dim
+    pspec = pspec + (None,) * (len(shape) + 1 - len(pspec))
+    if suffix == "m":
+        return pspec[:-1] if len(pspec) == len(shape) + 1 else pspec
+    if suffix == "vr":   # parent shape[:-1]
+        return pspec[:-1]
+    # vc: parent shape[:-2] + shape[-1:]
+    return pspec[:-2] + pspec[-1:]
+
+
+def fix_m_spec(cfg, path: str, shape: tuple) -> tuple:
+    """Momentum has the SAME shape as the param — specialize here."""
+    parts = [p for p in path.split("/") if p and p not in _WRAPPERS]
+    if parts and parts[-1] == "m":
+        parts = parts[:-1]
+    return param_spec("/".join(parts), shape)
+
+
+def lm_state_spec(cfg: tf.LMConfig, path: str, shape: tuple) -> tuple:
+    parts = [p for p in path.split("/") if p]
+    if parts and parts[-1] in ("m", "mu", "nu") or (
+        len(parts) >= 2 and parts[-2] in ("mu", "nu")
+    ):
+        return fix_m_spec(cfg, path, shape)
+    return state_spec(cfg, path, shape)
+
+
+def lm_batch_spec(cfg: tf.LMConfig, path: str, shape: tuple) -> tuple:
+    if len(shape) == 2:
+        return (DP, None)
+    if len(shape) == 1:
+        return (DP,)
+    return ()
+
 def lm_model_flops(cfg: tf.LMConfig, cell: base.ShapeCell) -> float:
     n = cfg.active_param_count()
     b, s = cell.meta["batch"], cell.meta["seq"]
@@ -133,6 +265,10 @@ def make_lm_spec(name: str, full_cfg, smoke_cfg) -> base.ArchSpec:
         make_config=full_cfg,
         make_smoke_config=smoke_cfg,
         shapes=lm_shapes(),
+        input_specs=input_specs,
+        abstract_state=abstract_state,
         step_fn=step_fn,
+        state_spec_fn=lm_state_spec,
+        batch_spec_fn=lm_batch_spec,
         model_flops_fn=lm_model_flops,
     ))

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import recsys_common
+from repro_torch.configs.base import abstract
 from repro_torch.models import recsys
 
 
@@ -41,6 +42,27 @@ def retrieval(params, batch, cfg):
     return torch.amax(ce @ v.T, dim=-1).float()
 
 
+def train_inputs(cfg, cell):
+    b, s = cell.meta["batch"], cfg.seq_len
+    return {"seq": abstract((b, s), torch.int32),
+            "mask": abstract((b, s), torch.float32),
+            "pos": abstract((b,), torch.int32),
+            "negs": abstract((b, 10), torch.int32)}
+
+
+def score_inputs(cfg, cell):
+    b = cell.meta["batch"]
+    return {"seq": abstract((b, cfg.seq_len), torch.int32),
+            "mask": abstract((b, cfg.seq_len), torch.float32),
+            "cands": abstract((b, 100), torch.int32)}
+
+
+def retrieval_inputs(cfg, cell):
+    return {"seq": abstract((1, cfg.seq_len), torch.int32),
+            "mask": abstract((1, cfg.seq_len), torch.float32),
+            "cands": abstract((cell.meta["candidates"],), torch.int32)}
+
+
 def model_flops(cfg: recsys.MINDConfig, cell) -> float:
     b = cell.meta["batch"]
     s, d, k = cfg.seq_len, cfg.embed_dim, cfg.n_interests
@@ -55,6 +77,9 @@ def model_flops(cfg: recsys.MINDConfig, cell) -> float:
 
 SPEC = recsys_common.make_recsys_spec(
     "mind", full_config, smoke_config,
-    loss_fn=recsys.mind_loss, score_fn=score, retrieval_fn=retrieval,
+    init_fn=recsys.mind_init, loss_fn=recsys.mind_loss,
+    score_fn=score, retrieval_fn=retrieval,
+    train_inputs=train_inputs, score_inputs=score_inputs,
+    retrieval_inputs=retrieval_inputs,
     model_flops_fn=model_flops,
 )

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import recsys_common
+from repro_torch.configs.base import abstract
 from repro_torch.models import recsys
 
 
@@ -41,6 +42,22 @@ def retrieval(params, batch, cfg):
     return (ce @ h).float()
 
 
+def train_inputs(cfg, cell):
+    b, s = cell.meta["batch"], cfg.seq_len
+    return {k: abstract((b, s), torch.int32) for k in ("seq", "pos", "neg")}
+
+
+def score_inputs(cfg, cell):
+    b = cell.meta["batch"]
+    return {"seq": abstract((b, cfg.seq_len), torch.int32),
+            "cands": abstract((b, 100), torch.int32)}
+
+
+def retrieval_inputs(cfg, cell):
+    return {"seq": abstract((1, cfg.seq_len), torch.int32),
+            "cands": abstract((cell.meta["candidates"],), torch.int32)}
+
+
 def model_flops(cfg: recsys.SASRecConfig, cell) -> float:
     b = cell.meta["batch"]
     s, d = cfg.seq_len, cfg.embed_dim
@@ -56,6 +73,9 @@ def model_flops(cfg: recsys.SASRecConfig, cell) -> float:
 
 SPEC = recsys_common.make_recsys_spec(
     "sasrec", full_config, smoke_config,
-    loss_fn=recsys.sasrec_loss, score_fn=score, retrieval_fn=retrieval,
+    init_fn=recsys.sasrec_init, loss_fn=recsys.sasrec_loss,
+    score_fn=score, retrieval_fn=retrieval,
+    train_inputs=train_inputs, score_inputs=score_inputs,
+    retrieval_inputs=retrieval_inputs,
     model_flops_fn=model_flops,
 )

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import recsys_common
+from repro_torch.configs.base import abstract
 from repro_torch.models import recsys
 
 
@@ -28,6 +29,21 @@ def smoke_config() -> recsys.TwoTowerConfig:
 def score(params, batch, cfg):
     u, it = recsys.twotower_embed(params, batch, cfg)
     return torch.sum(u * it, dim=-1).float()
+
+
+def train_inputs(cfg, cell):
+    b = cell.meta["batch"]
+    return {"user_feats": abstract((b, cfg.n_user_feats), torch.int32),
+            "item_feats": abstract((b, cfg.n_item_feats), torch.int32)}
+
+
+score_inputs = train_inputs
+
+
+def retrieval_inputs(cfg, cell):
+    return {"user_feats": abstract((1, cfg.n_user_feats), torch.int32),
+            "cand_feats": abstract((cell.meta["candidates"],
+                                    cfg.n_item_feats), torch.int32)}
 
 
 def model_flops(cfg: recsys.TwoTowerConfig, cell) -> float:
@@ -51,7 +67,9 @@ def model_flops(cfg: recsys.TwoTowerConfig, cell) -> float:
 
 SPEC = recsys_common.make_recsys_spec(
     "two-tower-retrieval", full_config, smoke_config,
-    loss_fn=recsys.twotower_loss, score_fn=score,
-    retrieval_fn=recsys.twotower_score_candidates,
+    init_fn=recsys.twotower_init, loss_fn=recsys.twotower_loss,
+    score_fn=score, retrieval_fn=recsys.twotower_score_candidates,
+    train_inputs=train_inputs, score_inputs=score_inputs,
+    retrieval_inputs=retrieval_inputs,
     model_flops_fn=model_flops,
 )

@@ -1,14 +1,17 @@
-"""Fault tolerance on the host: heartbeats, stragglers, preemption.
+"""Fault tolerance on the host: heartbeats, stragglers, preemption, elasticity.
 
-The port's copy of the part of :mod:`repro.distributed.fault_tolerance`
-that the training loop uses; it touches no device, so it is the
-reference's code line for line:
+The port's copy of :mod:`repro.distributed.fault_tolerance`; it touches
+no device, so it is the reference's code line for line:
 
 * ``Heartbeat`` — per-step wall-clock monitor. A step slower than
   ``straggler_factor`` x the rolling median of the last ``window`` steps
   (once 8 are known) is a straggler event.
 * ``PreemptionGuard`` — SIGTERM/SIGINT -> "checkpoint at the next step
   boundary" flag.
+* ``plan_elastic_mesh`` / ``reassign_shards`` — from the surviving device
+  set, the largest (data, model) grid that keeps the model-parallel
+  groups whole, and a deterministic round-robin of data shards over the
+  surviving workers.
 """
 
 from __future__ import annotations
@@ -74,3 +77,52 @@ class PreemptionGuard:
     def restore(self) -> None:
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    data: int
+    model: int
+    dropped: int
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model
+
+
+def plan_elastic_mesh(
+    n_alive: int, model_parallel: int, *, min_data: int = 1
+) -> ElasticPlan:
+    """Largest (data, model) grid from survivors, keeping TP groups whole.
+
+    Model-parallel groups cannot be split across failures (params are
+    sharded inside a group), so ``model_parallel`` stays fixed and the
+    data axis shrinks to the largest multiple that fits. Raises if even
+    ``min_data`` groups can't be formed.
+    """
+    if model_parallel <= 0:
+        raise ValueError("model_parallel must be positive")
+    data = n_alive // model_parallel
+    if data < min_data:
+        raise RuntimeError(
+            f"cannot form a mesh: {n_alive} devices < {min_data}×{model_parallel}"
+        )
+    used = data * model_parallel
+    return ElasticPlan(data=data, model=model_parallel, dropped=n_alive - used)
+
+
+def reassign_shards(
+    n_shards: int, failed: set[int], n_workers: int
+) -> dict[int, list[int]]:
+    """Round-robin data shards over surviving workers (failed ones excluded).
+
+    Deterministic given (n_shards, failed set): every survivor computes the
+    same assignment without coordination.
+    """
+    alive = [w for w in range(n_workers) if w not in failed]
+    if not alive:
+        raise RuntimeError("no surviving workers")
+    out: dict[int, list[int]] = {w: [] for w in alive}
+    for s in range(n_shards):
+        out[alive[s % len(alive)]].append(s)
+    return out

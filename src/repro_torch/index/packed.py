@@ -2,7 +2,10 @@
 and layout conversions.
 
 Port of :mod:`repro.index.packed`. Bloom-filter bits live packed 32 per
-int32 word (the reference's uint32 words, same bits).
+int32 word (the reference's uint32 words, same bits). The reference's
+removed v1 entry points (``insert_batch_words``, ``insert_batch_bitsliced``,
+``insert_batch_rows``, kept there as ``ImportError`` stubs) have no
+counterpart: the port never had them.
 """
 
 from __future__ import annotations
@@ -56,6 +59,22 @@ def scatter_or_matrix(
     return matrix
 
 
+
+def scatter_or_bitsliced(matrix: torch.Tensor, rows: torch.Tensor,
+                         file_ids: torch.Tensor) -> torch.Tensor:
+    """Set file bits at (row, file) pairs in a bit-sliced (m, F/32)
+    matrix, in place."""
+    fids = file_ids.reshape(-1).to(torch.int32)
+    return scatter_or_matrix(matrix, rows, fids >> 5, fids & 31)
+
+
+def scatter_or_rows(filters: torch.Tensor, filter_rows: torch.Tensor,
+                    locs: torch.Tensor) -> torch.Tensor:
+    """Set bit ``locs[i]`` of packed filter row ``filter_rows[i]`` (RAMBO),
+    in place."""
+    flat = locs.reshape(-1).to(torch.int32)
+    return scatter_or_matrix(filters, filter_rows, flat >> 5, flat & 31)
+
 def scatter_or(words: torch.Tensor, locs: torch.Tensor) -> torch.Tensor:
     """OR the bits at flat bit locations ``locs`` into the packed (n,) int32
     ``words`` in place; returns ``words``. Locations are read as uint32 (as
@@ -86,3 +105,13 @@ def unpack_file_bits(masks: torch.Tensor, n_files: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=masks.device)
     bits = (masks[..., None] >> shifts) & 1
     return bits.reshape(masks.shape[:-1] + (-1,))[..., :n_files] == 1
+
+
+def __getattr__(name: str):
+    # coverage_need's single definition lives in repro_torch.index.query,
+    # which imports this module: re-exported lazily, as the reference does
+    if name == "coverage_need":
+        from repro_torch.index import query
+
+        return query.coverage_need
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

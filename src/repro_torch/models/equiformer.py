@@ -20,9 +20,11 @@ Parameters are the reference's tree: per-layer leaves stacked on axis 0
 (``layers``), read through one ``unbind`` a leaf. The edge rotations are
 built once per forward, outside the layer loop and outside autograd (they
 depend on positions only). Under autograd with ``cfg.remat`` each layer
-runs through ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
-of the scan body), so only each layer's input is kept. The reference's
-sharding constraints are dropped.
+runs through :func:`repro_torch.models.remat.checkpoint` (the reference's
+``jax.checkpoint`` of the scan body), so only each layer's input is kept.
+The reference's sharding constraints are dropped
+(:mod:`repro_torch.distributed.sharding` has ``shard``, which the model
+does not call).
 """
 
 from __future__ import annotations
@@ -33,9 +35,7 @@ from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as torch_checkpoint
-
-from repro_torch.models import gnn_common, layers, so3
+from repro_torch.models import gnn_common, layers, remat, so3
 from repro_torch.models.layers import Params
 
 
@@ -94,8 +94,7 @@ def _layers_init(gen: torch.Generator, cfg: EquiformerConfig,
                  dtype) -> Params:
     """Every layer's parameters, stacked along a leading n_layers axis."""
     n, c = (cfg.n_layers,), cfg.d_hidden
-    wl = torch.randn((cfg.n_layers, cfg.l_max + 1, c, c), generator=gen,
-                     device=gen.device, dtype=torch.float32)
+    wl = layers.randn(gen, (cfg.n_layers, cfg.l_max + 1, c, c))
     return {
         "so2": _so2_weights(gen, cfg, dtype, n),
         "radial": {
@@ -121,8 +120,8 @@ def _layers_init(gen: torch.Generator, cfg: EquiformerConfig,
 def equiformer_init(seed: int, cfg: EquiformerConfig, dtype=torch.float32,
                     device="cuda") -> Params:
     """Random weights drawn on ``device`` from a generator seeded with
-    ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    ``seed`` (on ``"meta"``: shapes and dtypes only, nothing drawn)."""
+    gen = layers.generator(seed, device)
     d_in = cfg.d_feat if cfg.d_feat else cfg.n_node_types
     return {
         "embed": layers.dense_init(gen, d_in, cfg.d_hidden, dtype),
@@ -291,12 +290,11 @@ def equiformer_forward(params: Params, batch: dict,
                    x0.new_zeros((n, cfg.n_coeff - 1, cfg.d_hidden))], dim=1)
     src, dst = batch["src"].long(), batch["dst"].long()
     dmat, dist = _edge_rotations(batch["positions"].to(dt), src, dst, cfg)
-    remat = cfg.remat and torch.is_grad_enabled()
+    recompute = cfg.remat and torch.is_grad_enabled()
     for lp in layers.unstack(params["layers"], cfg.n_layers):
         args = (lp, x, dmat, dist, src, dst, batch["edge_mask"], n, cfg)
-        if remat:
-            x = torch_checkpoint.checkpoint(_layer, *args,
-                                            use_reentrant=False)
+        if recompute:
+            x = remat.checkpoint(_layer, *args)
         else:
             x = _layer(*args)
     return x[:, 0, :] @ params["head"].to(dt)

@@ -5,12 +5,17 @@ under the reference's keys (``wq``, ``wk``, ``wv``, ``wo``, ``wi``,
 ``wg``); every apply function takes ``(params, inputs, cfg)``. The compute
 dtype is the input's; weights are stored f32 (or bf16 under
 ``param_dtype``) and cast on use. The reference's sharding constraints
-have no counterpart on one card and are dropped.
+are dropped: :mod:`repro_torch.distributed.sharding` has ``shard`` and
+the rules, which these functions do not call.
 
 Initialisers draw from a ``torch.Generator`` on the target device, so the
 same seed gives the same weights on one device type (the values differ
 from the reference's ``jax.random``; :mod:`repro_torch.models.convert`
-carries a reference parameter tree across instead).
+carries a reference parameter tree across instead). On the ``"meta"``
+device, which has no generator, :func:`generator` gives a stand-in and
+the initialisers allocate and draw nothing: the tree keeps its paths,
+shapes and dtypes (the counterpart of the reference's ``jax.eval_shape``
+of an init).
 """
 
 from __future__ import annotations
@@ -32,20 +37,38 @@ NEG_INF = -1e30     # the reference's mask fill
 # init helpers
 # --------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``"meta"`` device."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device):
+    """A generator on ``device`` seeded with ``seed`` (a
+    :class:`MetaGenerator` on ``"meta"``)."""
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def randn(gen, shape: tuple) -> torch.Tensor:
+    """f32 standard normals of ``shape`` drawn on ``gen``'s device."""
+    return torch.randn(shape, device=gen.device, dtype=torch.float32,
+                       generator=None if isinstance(gen, MetaGenerator)
+                       else gen)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, *, lead: tuple = ()) -> torch.Tensor:
     """(``*lead``, d_in, d_out) normal weights scaled by 1/sqrt(d_in), drawn
     in f32 on ``gen``'s device and cast to ``dtype``."""
-    w = torch.randn((*lead, d_in, d_out), generator=gen,
-                    device=gen.device, dtype=torch.float32)
+    w = randn(gen, (*lead, d_in, d_out))
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return (randn(gen, (vocab, d)) * 0.02).to(dtype)
 
 
 def unstack(stacked: Params, n: int) -> list:
@@ -54,15 +77,19 @@ def unstack(stacked: Params, n: int) -> list:
     one ``unbind`` a leaf: under autograd each stacked leaf's gradient is
     then one stack of the slices' gradients, not a full-size sum a
     slice."""
-    def split(tree):
-        return {k: split(v) if isinstance(v, dict) else torch.unbind(v, 0)
-                for k, v in tree.items()}
+    parts = _unbind_tree(stacked)
+    return [_pick(parts, i) for i in range(n)]
 
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    parts = split(stacked)
-    return [pick(parts, i) for i in range(n)]
+
+# module-level recursions: recursive closures would be reference cycles
+def _unbind_tree(tree: Params) -> Params:
+    return {k: _unbind_tree(v) if isinstance(v, dict) else torch.unbind(v, 0)
+            for k, v in tree.items()}
+
+
+def _pick(tree: Params, i: int) -> Params:
+    return {k: _pick(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------

@@ -16,11 +16,12 @@ reproduces the reference's integer semantics: ``%`` and ``//`` floor as
 
 Parameters are nested dicts of tensors under the reference's keys; each
 ``*_init(seed, cfg, dtype, device)`` draws from a ``torch.Generator`` on
-``device`` (the values differ from ``jax.random``'s;
-:mod:`repro_torch.models.convert` carries a reference tree across).
-SASRec's per-block leaves are stacked on axis 0, as the reference's
-``vmap``ped init stacks them. The reference's sharding constraints are
-dropped.
+``device``, or nothing on ``"meta"`` (the values differ from
+``jax.random``'s; :mod:`repro_torch.models.convert` carries a reference
+tree across). SASRec's per-block leaves are stacked on axis 0, as the
+reference's ``vmap``ped init stacks them. The reference's sharding
+constraints are dropped (:mod:`repro_torch.distributed.sharding` has
+``shard``, which these functions do not call).
 """
 
 from __future__ import annotations
@@ -29,10 +30,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as torch_checkpoint
-
 from repro_torch.core import hashing
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 from repro_torch.models.layers import Params
 
 
@@ -129,13 +128,9 @@ class FMConfig:
     hash_scheme: str = "none"
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed))
-
-
 def fm_init(seed: int, cfg: FMConfig, dtype=torch.float32,
             device="cuda") -> Params:
-    gen = _generator(seed, device)
+    gen = layers.generator(seed, device)
     n = cfg.n_sparse * cfg.vocab_per_field
     return {
         "tables": layers.embed_init(gen, n, cfg.embed_dim, dtype),
@@ -206,7 +201,7 @@ def _tower(params: Params, x: torch.Tensor,
 
 def twotower_init(seed: int, cfg: TwoTowerConfig, dtype=torch.float32,
                   device="cuda") -> Params:
-    gen = _generator(seed, device)
+    gen = layers.generator(seed, device)
     return {
         "user_table": layers.embed_init(gen, cfg.n_users, cfg.embed_dim,
                                         dtype),
@@ -262,14 +257,13 @@ def twotower_loss(params: Params, batch: dict, cfg: TwoTowerConfig):
     several such buffers in its backward)."""
     u, it = twotower_embed(params, batch, cfg)
     b, step = u.shape[0], TWOTOWER_ROW_CHUNK
-    remat = torch.is_grad_enabled() and b > step
+    recompute = torch.is_grad_enabled() and b > step
     total = u.new_zeros((), dtype=torch.float32)
     for i in range(0, b, step):
         rows = torch.arange(i, min(i + step, b), device=u.device)
         args = (u[i:i + step], it, rows, cfg.temperature)
-        if remat:
-            total = total + torch_checkpoint.checkpoint(
-                _inbatch_nll_rows, *args, use_reentrant=False)
+        if recompute:
+            total = total + remat.checkpoint(_inbatch_nll_rows, *args)
         else:
             total = total + _inbatch_nll_rows(*args)
     loss = total / b
@@ -315,7 +309,7 @@ class SASRecConfig:
 
 def sasrec_init(seed: int, cfg: SASRecConfig, dtype=torch.float32,
                 device="cuda") -> Params:
-    gen = _generator(seed, device)
+    gen = layers.generator(seed, device)
     n, d = cfg.n_blocks, cfg.embed_dim
     return {
         "item_table": layers.embed_init(gen, cfg.n_items, d, dtype),
@@ -378,7 +372,7 @@ class MINDConfig:
 
 def mind_init(seed: int, cfg: MINDConfig, dtype=torch.float32,
               device="cuda") -> Params:
-    gen = _generator(seed, device)
+    gen = layers.generator(seed, device)
     return {
         "item_table": layers.embed_init(gen, cfg.n_items, cfg.embed_dim,
                                         dtype),

@@ -12,12 +12,14 @@ the reference's weights across is a copy
 (:func:`repro_torch.models.convert.params_from_jax`). A Python loop over
 the layers takes the place of the reference's ``lax.scan``. Under
 autograd, ``cfg.remat`` checkpoints each layer
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
-scan body): a layer's activations are recomputed in backward, so only
-each layer's input is kept. The loss's sequence chunks are checkpointed
-likewise, so one chunk's logits are live at a time. Serving runs without
-autograd and never checkpoints. The reference's sharding constraints exist
-only for XLA and are dropped.
+(:func:`repro_torch.models.remat.checkpoint`, the reference's
+``jax.checkpoint`` of the scan body): a layer's activations are
+recomputed in backward, so only each layer's input is kept. The loss's
+sequence chunks are checkpointed likewise, so one chunk's logits are
+live at a time. Serving runs without autograd and never checkpoints.
+The reference's sharding constraints exist only for XLA and are dropped
+(:mod:`repro_torch.distributed.sharding` has ``shard`` and the rules,
+which these functions do not call).
 :class:`TransformerLM` holds such a tree as an ``nn.Module`` (its
 ``state_dict`` keys are the reference's paths); the functions take the
 plain dict (``model.params()``), as the reference's do.
@@ -30,9 +32,7 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils import checkpoint as torch_checkpoint
-
-from repro_torch.models import layers, moe as moe_mod
+from repro_torch.models import layers, moe as moe_mod, remat
 from repro_torch.models.layers import Params
 
 
@@ -185,8 +185,8 @@ def _layers_init(gen: torch.Generator, cfg: LMConfig, dtype) -> Params:
 def lm_init(seed: int, cfg: LMConfig, dtype=torch.float32,
             device="cuda") -> TransformerLM:
     """Random weights drawn on ``device`` from a generator seeded with
-    ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    ``seed`` (on ``"meta"``: shapes and dtypes only, nothing drawn)."""
+    gen = layers.generator(seed, device)
     p: Params = {
         "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model, dtype),
         "layers": _layers_init(gen, cfg, dtype),
@@ -236,11 +236,10 @@ def lm_hidden(params: Params, tokens: torch.Tensor,
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
+    recompute = cfg.remat and torch.is_grad_enabled()
     for lp in layers.unstack(params["layers"], cfg.n_layers):
-        if remat:
-            x, a, _, _ = torch_checkpoint.checkpoint(
-                _block, cfg, lp, x, positions, use_reentrant=False)
+        if recompute:
+            x, a, _, _ = remat.checkpoint(_block, cfg, lp, x, positions)
         else:
             x, a, _, _ = _block(cfg, lp, x, positions)
         aux = aux + a
@@ -291,8 +290,7 @@ def lm_loss(params: Params, batch: dict, cfg: LMConfig,
     for i in range(n):
         xc, lc = x[:, i * w:(i + 1) * w], labels[:, i * w:(i + 1) * w]
         if torch.is_grad_enabled():
-            c, z, m = torch_checkpoint.checkpoint(
-                _ce_chunk, params, xc, lc, use_reentrant=False)
+            c, z, m = remat.checkpoint(_ce_chunk, params, xc, lc)
         else:
             c, z, m = _ce_chunk(params, xc, lc)
         ce_sum, z_sum, cnt = ce_sum + c, z_sum + z, cnt + m

@@ -2,7 +2,12 @@
 
 Port of the parts of :mod:`repro.serving.genesearch` that are still the
 source of truth: :class:`GeneSearchConfig` and the :func:`insert_plan` /
-:func:`query_plan` helpers that map it onto the shared planner layers.
+:func:`query_plan` helpers that map it onto the shared planner layers,
+and the re-exports of the serving surface from
+:mod:`repro_torch.serving.service`. The reference's six removed v1 entry
+points (``empty_index``, ``insert_read_batch``, ``build_archive``,
+``insert_read``, ``serve_step``, ``match_file_ids``, kept there as
+``ImportError`` stubs) have no counterpart: the port never had them.
 """
 
 from __future__ import annotations
@@ -63,3 +68,13 @@ def query_plan(
         cfg.idl_config(), cfg.scheme, (batch, cfg.read_len),
         tuple(index_shape), bit_probe=False, lane32=True, device=device,
     )
+
+
+# -- the serving surface's re-exports (home: repro_torch.serving.service) ---
+from repro_torch.serving.service import (  # noqa: E402,F401  (tail import)
+    BatchStats,
+    GeneSearchService,
+    SearchRequest,
+    SearchResult,
+    ServiceConfig,
+)

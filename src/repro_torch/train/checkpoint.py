@@ -35,20 +35,23 @@ def _flatten_with_paths(tree) -> dict:
     """{path: leaf} in JAX's order: dict keys sorted, a dataclass's fields
     in order as ``.name``, ``None`` leaves absent."""
     flat: dict = {}
-
-    def walk(node, parts):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], parts + [str(k)])
-        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
-            for f in dataclasses.fields(node):
-                walk(getattr(node, f.name), parts + ["." + f.name])
-        else:
-            flat["/".join(parts)] = node
-    walk(tree, [])
+    _walk(tree, [], flat)
     return flat
+
+
+def _walk(node, parts: list, flat: dict) -> None:
+    # a module-level recursion: a recursive closure would keep ``flat``
+    # (the tree's tensors) in a reference cycle until the collector runs
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], parts + [str(k)], flat)
+    elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+        for f in dataclasses.fields(node):
+            _walk(getattr(node, f.name), parts + ["." + f.name], flat)
+    else:
+        flat["/".join(parts)] = node
 
 
 def _rebuild(tree, values: dict, parts=()):

@@ -30,6 +30,8 @@ Tolerances (f32, on the CPU; the two frameworks sum in different orders):
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -51,7 +53,9 @@ from repro_torch.configs import equiformer_v2  # noqa: E402
 from repro_torch.data import graph_pipeline as graph  # noqa: E402
 from repro_torch.models import convert, equiformer as eq  # noqa: E402
 from repro_torch.models import gnn_common, so3  # noqa: E402
+from repro_torch.models import remat as remat_mod  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import train_state as ts  # noqa: E402
 
 KEY = jax.random.PRNGKey(0)
@@ -332,21 +336,18 @@ def test_loss_and_grads_match_reference_full_width(remat):
 
 def test_remat_checkpoints_each_layer(monkeypatch):
     """Under autograd with remat each layer goes through
-    ``torch.utils.checkpoint`` (non-reentrant); without remat, or under
+    ``remat_mod.checkpoint``; without remat, or under
     no_grad, none does; the loss is the same either way."""
-    from torch.utils import checkpoint as torch_checkpoint
-
     jcfg, cfg = smoke_cfg("node_cls", remat=True)
     params = convert.equiformer_params_from_jax(params_for(jcfg), CPU)
     batch = t_batch(task_batch("node_cls", seed=5))
     calls = []
-    real = torch_checkpoint.checkpoint
+    real = remat_mod.checkpoint
 
-    def counting(fn, *args, **kw):
+    def counting(fn, *args):
         calls.append(fn.__name__)
-        assert kw.get("use_reentrant") is False
-        return real(fn, *args, **kw)
-    monkeypatch.setattr(torch_checkpoint, "checkpoint", counting)
+        return real(fn, *args)
+    monkeypatch.setattr(remat_mod, "checkpoint", counting)
     losses = []
     for remat, want in ((True, ["_layer"] * cfg.n_layers), (False, [])):
         calls.clear()
@@ -360,6 +361,44 @@ def test_remat_checkpoints_each_layer(monkeypatch):
     assert calls == []
     np.testing.assert_allclose(losses[1:], [losses[0]] * 2, **SMOKE_TOL)
 
+
+def assert_freed_without_collector(make_refs):
+    """With the cyclic collector off, ``make_refs()`` runs a step, drops
+    everything it made and returns weakrefs to tensors it held: each must
+    be dead (freed by reference counting alone)."""
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        refs = make_refs()
+        alive = [name for name, r in refs.items() if r() is not None]
+    finally:
+        if was:
+            gc.enable()
+    assert alive == []
+
+
+def test_remat_step_state_dies_without_the_collector():
+    """An AdamW step of the Equiformer under remat (a checkpoint a layer):
+    once its state and outputs are dropped, a parameter leaf and a moment
+    are freed at once. The loss equals the reference's."""
+    jcfg, cfg = smoke_cfg("node_cls", remat=True)
+    batch = task_batch("node_cls", seed=6)
+    want_loss, _, _ = ref_value_and_grads(jcfg, batch)
+    losses = []
+
+    def step_once():
+        state = ts.TrainState.create(
+            convert.equiformer_params_from_jax(params_for(jcfg), CPU),
+            opt.adamw(1e-3))
+        step = ts.make_train_step(lambda p, b: eq.equiformer_loss(p, b, cfg),
+                                  opt.adamw(1e-3))
+        state, m = step(state, t_batch(batch))
+        losses.append(float(m["loss"]))
+        return {"param": weakref.ref(state.params["layers"]["so2"]["w0_r"]),
+                "moment": weakref.ref(state.opt_state["mu"]["embed"])}
+    assert_freed_without_collector(step_once)
+    np.testing.assert_allclose(losses[0], want_loss, **SMOKE_TOL)
 
 def test_registry_train_step_matches_reference():
     """Three AdamW steps of the registry's ``molecule`` step (the cell's

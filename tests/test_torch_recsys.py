@@ -25,6 +25,8 @@ Tolerances (f32, on the CPU; the two frameworks sum in different orders):
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -44,6 +46,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import hashing  # noqa: E402
 from repro_torch.data import recsys_pipeline as pipe  # noqa: E402
 from repro_torch.models import convert, recsys  # noqa: E402
+from repro_torch.models import remat as remat_mod  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import train_state as ts  # noqa: E402
 
@@ -364,20 +367,18 @@ def test_twotower_loss_in_row_blocks_matches_reference(row_chunk, pair,
     """The port takes the (B, B) in-batch logits in blocks of rows, each
     block checkpointed under autograd when there is more than one: loss
     and gradients equal the reference's whole-matrix ones."""
-    from torch.utils import checkpoint as torch_checkpoint
-
     jcfg, jp, cfg, params = pair("two-tower-retrieval")
     batch = train_batch("two-tower-retrieval", cfg, seed=44)
     (jl, _), jg = jax.value_and_grad(
         lambda p, b: j_recsys.twotower_loss(p, b, jcfg), has_aux=True)(
         jp, j_batch(batch))
     calls = []
-    real = torch_checkpoint.checkpoint
+    real = remat_mod.checkpoint
 
-    def counting(fn, *args, **kw):
+    def counting(fn, *args):
         calls.append(fn.__name__)
-        return real(fn, *args, **kw)
-    monkeypatch.setattr(torch_checkpoint, "checkpoint", counting)
+        return real(fn, *args)
+    monkeypatch.setattr(remat_mod, "checkpoint", counting)
     monkeypatch.setattr(recsys, "TWOTOWER_ROW_CHUNK", row_chunk)
     loss, _, grads = ts.value_and_grad(
         lambda p, b: recsys.twotower_loss(p, b, cfg), params, t_batch(batch))
@@ -385,6 +386,45 @@ def test_twotower_loss_in_row_blocks_matches_reference(row_chunk, pair,
     np.testing.assert_allclose(float(loss), float(jl), **LOSS_TOL)
     _grads_close(grads, leaves_with_paths({".params": jg}))
 
+
+def assert_freed_without_collector(make_refs):
+    """With the cyclic collector off, ``make_refs()`` runs a step, drops
+    everything it made and returns weakrefs to tensors it held: each must
+    be dead (freed by reference counting alone)."""
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        refs = make_refs()
+        alive = [name for name, r in refs.items() if r() is not None]
+    finally:
+        if was:
+            gc.enable()
+    assert alive == []
+
+
+def test_twotower_step_state_dies_without_the_collector(pair, monkeypatch):
+    """The registry's two-tower train step with the (B, B) logits in three
+    checkpointed row blocks: once its state and outputs are dropped, a
+    parameter leaf and an AdamW moment are freed at once. The loss equals
+    the reference's whole-matrix one."""
+    jcfg, jp, cfg, _ = pair("two-tower-retrieval")
+    monkeypatch.setattr(recsys, "TWOTOWER_ROW_CHUNK", 3)
+    batch = train_batch("two-tower-retrieval", cfg, seed=45)
+    want = float(j_recsys.twotower_loss(jp, j_batch(batch), jcfg)[0])
+    spec = configs.get("two-tower-retrieval")
+    losses = []
+
+    def step_once():
+        state = convert.train_state_from_jax(
+            np_tree(j_ts.TrainState.create(jp, j_opt.adamw(1e-3))), cfg, CPU)
+        state, m = spec.step_fn(cfg, spec.shapes["train_batch"])(
+            state, t_batch(batch))
+        losses.append(float(m["loss"]))
+        return {"param": weakref.ref(state.params["user_tower"]["w0"]),
+                "moment": weakref.ref(state.opt_state["nu"]["item_table"])}
+    assert_freed_without_collector(step_once)
+    np.testing.assert_allclose(losses[0], want, **LOSS_TOL)
 
 def test_sasrec_loss_masks_negative_positives(pair):
     """Positions whose positive id is -1 add nothing: the loss equals the

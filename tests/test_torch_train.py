@@ -27,12 +27,14 @@ Tolerances (f32, on the CPU; the two frameworks sum in different orders):
 """
 
 import dataclasses
+import gc
 import io
 import os
 import signal
 import subprocess
 import sys
 import time
+import weakref
 import zipfile
 from pathlib import Path
 
@@ -57,6 +59,7 @@ from repro_torch.distributed import fault_tolerance as ft  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models import remat as remat_mod  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
@@ -327,21 +330,18 @@ def test_lm_loss_without_grad_equals_with(lm_pair):
 
 def test_remat_checkpoints_layers_and_chunks(lm_pair, monkeypatch):
     """Under autograd with remat each layer and each loss chunk goes
-    through ``torch.utils.checkpoint``; without remat only the chunks;
+    through ``remat_mod.checkpoint``; without remat only the chunks;
     under no_grad nothing."""
-    from torch.utils import checkpoint as torch_checkpoint
-
     _, _, cfg, npp = lm_pair("granite-20b")
     params = convert.params_from_jax(npp, cfg, CPU).params()
     batch = t_batch(lm_batch(23, cfg.vocab, 2, 16))
     calls = []
-    real = torch_checkpoint.checkpoint
+    real = remat_mod.checkpoint
 
-    def counting(fn, *args, **kw):
+    def counting(fn, *args):
         calls.append(fn.__name__)
-        assert kw.get("use_reentrant") is False
-        return real(fn, *args, **kw)
-    monkeypatch.setattr(torch_checkpoint, "checkpoint", counting)
+        return real(fn, *args)
+    monkeypatch.setattr(remat_mod, "checkpoint", counting)
     for remat, want in ((True, ["_block"] * cfg.n_layers
                          + ["_ce_chunk"] * 4),
                         (False, ["_ce_chunk"] * 4)):
@@ -401,6 +401,169 @@ def test_train_step_matches_reference(arch, microbatch, lm_pair):
                                   + 1e-6)
     assert state.params["embed"] is embed      # updated in place
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_remat_checkpoint_equals_the_direct_call(dtype):
+    """``remat.checkpoint`` of a function of a dict of leaves, a non-leaf
+    input and a flag, with several outputs (one a float, one an integer
+    tensor, one detached): the same outputs and exactly the same
+    gradients as the direct call, in f32 and in bf16, and under
+    ``no_grad`` the same outputs."""
+    def fn(p, x, scale):
+        y = torch.tanh(x @ p["w"] + p["b"]) * scale
+        return y, 0.5, (y > 0).sum(), y.detach().sum()
+
+    def leaves():
+        gen = torch.Generator().manual_seed(3)
+        w = torch.randn((6, 4), generator=gen).to(dtype).requires_grad_()
+        b = torch.randn((4,), generator=gen).to(dtype).requires_grad_()
+        e = torch.randn((5, 6), generator=gen).to(dtype).requires_grad_()
+        return w, b, e
+
+    grads = []
+    for call in (fn, lambda *a: remat_mod.checkpoint(fn, *a)):
+        w, b, e = leaves()
+        y, half, pos, _ = call({"w": w, "b": b}, e * 2, 1.5)
+        assert half == 0.5 and pos.dtype == torch.int64
+        grads.append((y.detach(), torch.autograd.grad(
+            (y.float() ** 2).sum(), [w, b, e])))
+    (y0, g0), (y1, g1) = grads
+    assert torch.equal(y0, y1)
+    for a, c in zip(g0, g1):
+        assert a.dtype == dtype and torch.equal(a, c)
+    w, b, e = leaves()
+    with torch.no_grad():
+        out = remat_mod.checkpoint(fn, {"w": w, "b": b}, e, 1.5)
+    assert torch.equal(out[0], fn({"w": w, "b": b}, e, 1.5)[0])
+
+
+FIRST_CHECKPOINT = """
+import gc, weakref, torch
+gc.disable()
+from repro_torch.models import remat
+
+def f(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+gen = torch.Generator().manual_seed(0)
+w, b, e = (torch.randn(s, generator=gen, requires_grad=True)
+           for s in ((4, 4), (4,), (3, 4)))
+out = remat.checkpoint(f, {"w": w, "b": b}, e * 2)
+g = torch.autograd.grad(out.sum(), [w, b, e])
+refs = [weakref.ref(t) for t in (w, b, e)]
+del w, b, e, out, g
+print(sum(r() is not None for r in refs))
+"""
+
+
+def test_first_checkpoint_of_a_process_leaves_no_cycle():
+    """A fresh interpreter with the collector off from its start: after
+    its first ``remat.checkpoint`` and the gradients, every leaf dies with
+    its last reference (``torch.utils.checkpoint``'s first call alone
+    keeps all three, through its lazy ``torch._dynamo`` import)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", FIRST_CHECKPOINT],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split()[-1] == "0"
+
+
+def assert_freed_without_collector(make_refs):
+    """With the cyclic collector off, ``make_refs()`` runs a step, drops
+    everything it made and returns weakrefs to tensors it held: each must
+    be dead (freed by reference counting alone)."""
+    was = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        refs = make_refs()
+        alive = [name for name, r in refs.items() if r() is not None]
+    finally:
+        if was:
+            gc.enable()
+    assert alive == []
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "noremat"])
+def test_train_step_state_dies_without_the_collector(remat, lm_pair):
+    """Once a ``make_train_step`` step's state and outputs are dropped, a
+    parameter leaf and an AdamW moment are freed at once: the checkpoints
+    (each layer under remat, each loss chunk always) leave no reference
+    cycle. The loss still equals the reference's."""
+    jcfg, jp, cfg, _ = lm_pair("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, remat=remat)
+    jcfg = dataclasses.replace(jcfg, remat=remat)
+    batch = lm_batch(36, cfg.vocab, 2, 16)
+    jopt = j_opt.adamw(1e-3)
+    _, jm = j_ts.make_train_step(
+        lambda p, b: j_tf.lm_loss(p, b, jcfg, loss_chunks=2), jopt)(
+        j_ts.TrainState.create(jp, jopt), j_batch(batch))
+    losses = []
+
+    def step_once():
+        state = convert.train_state_from_jax(
+            np_tree(j_ts.TrainState.create(jp, jopt)), cfg, CPU)
+        step = ts.make_train_step(
+            lambda p, b: tf.lm_loss(p, b, cfg, loss_chunks=2), opt.adamw(1e-3))
+        state, m = step(state, t_batch(batch))
+        losses.append(float(m["loss"]))
+        return {"param": weakref.ref(state.params["ln_f"]),
+                "layer": weakref.ref(state.params["layers"]["attn"]["wq"]),
+                "moment": weakref.ref(state.opt_state["mu"]["embed"])}
+    assert_freed_without_collector(step_once)
+    np.testing.assert_allclose(losses[0], float(jm["loss"]), **LOSS_TOL)
+
+
+def test_loop_with_checkpoints_frees_its_state_without_the_collector(
+        tmp_path, lm_pair):
+    """``loop.run`` with async and blocking checkpoints: once its result
+    is dropped, a parameter leaf and an AdamW moment are freed at once
+    (flattening a tree for a checkpoint leaves no reference cycle)."""
+    _, _, cfg, npp = lm_pair("granite-moe-1b-a400m")
+    cfg = dataclasses.replace(cfg, remat=True)
+    rng = np.random.default_rng(38)
+
+    def next_batch():
+        return t_batch(lm_batch(int(rng.integers(1 << 30)), cfg.vocab, 2, 16))
+
+    def run_once():
+        result = loop.run(
+            lambda p, b: tf.lm_loss(p, b, cfg, loss_chunks=2),
+            convert.params_from_jax(npp, cfg, CPU).params(), opt.adamw(1e-3),
+            next_batch, loop.LoopConfig(total_steps=4, ckpt_every=2,
+                                        ckpt_dir=str(tmp_path), log_every=1))
+        assert int(result.state.step) == 4
+        return {"param": weakref.ref(result.state.params["ln_f"]),
+                "moment": weakref.ref(result.state.opt_state["nu"]["embed"])}
+    assert_freed_without_collector(run_once)
+
+
+def test_value_and_grad_frees_params_and_grads_without_the_collector(lm_pair):
+    """``value_and_grad`` alone (remat on, chunked loss): the parameters,
+    the aliases the loss differentiates through (they share the
+    parameters' storage) and the gradients die with their last
+    reference."""
+    _, _, cfg, npp = lm_pair("granite-20b")
+    cfg = dataclasses.replace(cfg, remat=True)
+    batch = t_batch(lm_batch(37, cfg.vocab, 2, 16))
+
+    def grads_once():
+        refs = {}
+
+        def loss_fn(p, b):
+            refs["alias"] = weakref.ref(p["ln_f"])
+            refs["layer_alias"] = weakref.ref(p["layers"]["attn"]["wq"])
+            return tf.lm_loss(p, b, cfg, loss_chunks=4)
+        params = convert.params_from_jax(npp, cfg, CPU).params()
+        loss, metrics, grads = ts.value_and_grad(loss_fn, params, batch)
+        assert torch.isfinite(loss)
+        refs["param"] = weakref.ref(params["ln_f"])
+        refs["grad"] = weakref.ref(grads["layers"]["mlp"]["wi"])
+        return refs
+    assert_freed_without_collector(grads_once)
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_registry_train_step_matches_reference(arch, lm_pair):
