@@ -4249,6 +4249,193 @@ def roofline_phase(serve: dict, eq_recs: list) -> dict:
     return {"cells": rows}
 
 
+# -- phase 15: the sharded step: DTensor state over a one-card mesh ----------
+
+SHARDED_SERVE_REPS = 10              # 15b: timed serve calls a side
+
+
+def sharded_phase(dev, roof: dict) -> dict:
+    """Phase 15: the registry's steps run sharded, plain PyTorch (no kernel
+    of ``csrc/``). A one-process NCCL group and ``make_host_mesh()`` (one
+    card); each step runs once on plain tensors and once on DTensors laid
+    out by the arch's spec functions, under the cell's rules
+    (``cell_rules``, ``sharded_step``). 15a ``granite-moe-1b-a400m`` at
+    full width, ``LM_CHECK_LAYERS`` layers, f32, TF32 off: 3 AdamW steps
+    each side on the same batches, losses rtol 1e-3 and parameters within
+    ``adamw_bound`` (11a's bounds), every routing index equal; 15b SASRec's
+    ``serve_p99`` (512 requests, full config): scores rtol 1e-3, atol
+    1e-6. Each step is timed on both sides (host wall, synced), and the
+    difference printed as DTensor's overhead. 15c the dry run's count of
+    14d's three cells on the sharded step (``count_sharded`` on meta
+    tensors over this mesh): per-device FLOPs, bytes, collective bytes (0
+    on one device) and memory beside 14d's measured medians."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs import base, lm_common
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.models import recsys, transformer as tf
+    from repro_torch.roofline import analysis
+    from repro_torch.train import train_state as ts
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        # 15a: the MoE train step
+        spec = configs.get(LM_MOE)
+        cfg = dataclasses.replace(spec.make_config(), n_layers=LM_CHECK_LAYERS)
+        cell = dataclasses.replace(spec.shapes["train_4k"], meta={
+            "seq": TRAIN_CHECK_SEQ, "batch": TRAIN_CHECK_BATCH})
+        step = spec.step_fn(cfg, cell)
+        rules = base.cell_rules(spec, cell, mesh)
+        pipe, _ = lm_train_pipeline(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                                    "cpu")
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    pipe.next_batch().items()} for _ in range(TRAIN_CHECK_STEPS)]
+        lm = {}
+        for side in ("plain", "sharded"):
+            params = tf.lm_init(LM_SEED, cfg, device=dev).params()
+            state = ts.TrainState.create(params,
+                                         lm_common.choose_optimizer(cfg))
+            losses, ms = [], []
+            state_sh, batch_sh = base.cell_shardings(spec, cfg, mesh, state,
+                                                     batches[0])
+            if side == "sharded":
+                state = sh.distribute_tree(state, state_sh)
+            with recorded_routes() as seen:
+                for b in batches:
+                    if side == "sharded":
+                        b = sh.distribute_tree(b, batch_sh)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if side == "sharded":
+                        with sh.sharded_step(rules):
+                            state, m = step(state, b)
+                    else:
+                        state, m = step(state, b)
+                    loss = float(m["loss"].full_tensor() if isinstance(
+                        m["loss"], DTensor) else m["loss"])
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                    losses.append(loss)
+                routes = [i.full_tensor() if isinstance(i, DTensor) else i
+                          for _, i in seen]
+            leaves = [p.full_tensor() if isinstance(p, DTensor) else p
+                      for p in tree_leaves(state.params)]
+            lm[side] = (losses, ms, routes, leaves)
+            del state, params
+        (pl, pms, pr, pp), (sl, sms, sr, sp) = lm["plain"], lm["sharded"]
+        lr = 3e-4                       # choose_optimizer's AdamW below 30e9
+        check(np.allclose(sl, pl, rtol=1e-3, atol=0),
+              f"15a {TRAIN_CHECK_STEPS} sharded AdamW steps' losses == plain "
+              f"within rtol 1e-3 ({sl} vs {pl})")
+        param_err = max(max_abs_err(a, b) for a, b in zip(sp, pp))
+        check(param_err <= adamw_bound(lr, TRAIN_CHECK_STEPS),
+              f"15a sharded parameters within "
+              f"{adamw_bound(lr, TRAIN_CHECK_STEPS)} of plain ({param_err})")
+        check(len(sr) == len(pr) > 0 and all(
+            torch.equal(a, b) for a, b in zip(sr, pr)),
+              "15a every routing index equal, sharded and plain")
+        del lm, batches
+
+        # 15b: SASRec's serve_p99
+        spec = configs.get("sasrec")
+        cfg = spec.make_config()
+        cell = spec.shapes["serve_p99"]
+        serve = spec.step_fn(cfg, cell)
+        params = recsys.sasrec_init(RECSYS_SEED, cfg, device=dev)
+        batch = on_device(recsys_inputs("sasrec", cfg, "score",
+                                        cell.meta["batch"], RECSYS_SEED + 4),
+                          dev)
+        dparams, dbatch = base.distribute_cell(spec, cfg, mesh, params, batch)
+        srules = base.cell_rules(spec, cell, mesh)
+        out = {}
+
+        def plain_call():
+            out["plain"] = serve(params, batch)
+
+        def sharded_call():
+            with sh.sharded_step(srules):
+                out["sharded"] = serve(dparams, dbatch)
+        plain_ms = timed_calls(plain_call, 1 + SHARDED_SERVE_REPS)[1:]
+        sharded_ms = timed_calls(sharded_call, 1 + SHARDED_SERVE_REPS)[1:]
+        got = out["sharded"].full_tensor()
+        check(tuple(got.shape) == tuple(out["plain"].shape) and torch.allclose(
+            got, out["plain"], rtol=1e-3, atol=1e-6),
+              "15b SASRec serve_p99 sharded scores == plain (rtol 1e-3)")
+        serve_err = float((got - out["plain"]).abs().max())
+        del params, batch, dparams, dbatch, out, got
+
+        # 15c: the dry run's sharded count of 14d's cells at one device
+        measured = {(r["arch"], r["cell"]): r["measured_ms"]
+                    for r in roof["cells"]}
+        rows = []
+        for arch, cell_name in ROOFLINE_CELLS:
+            spec = configs.get(arch)
+            cfg = spec.make_config()
+            cell = spec.shapes[cell_name]
+            counts = dryrun.count_sharded(spec, cfg, cell, mesh)
+            coll = float(sum(v for k, v in counts["coll"].items()
+                             if k != "count"))
+            r = analysis.Roofline(
+                arch=arch, shape=cell_name, mesh="one", chips=1,
+                flops_per_chip=counts["flops"],
+                bytes_per_chip=counts["bytes"], coll_bytes_per_chip=coll,
+                coll_breakdown=counts["coll"],
+                model_flops=spec.model_flops_fn(cfg, cell))
+            check(coll == 0, f"15c {arch} {cell_name}: no collective on one "
+                  f"device ({counts['coll']})")
+            ms = measured[arch, cell_name]
+            rows.append({"arch": arch, "cell": cell_name, "measured_ms": ms,
+                         "flops": counts["flops"], "bytes": counts["bytes"],
+                         "coll_bytes": coll, "t_compute_ms": 1e3 * r.t_compute,
+                         "t_memory_ms": 1e3 * r.t_memory,
+                         "t_collective_ms": 1e3 * r.t_collective,
+                         "t_bound_ms": 1e3 * r.t_bound,
+                         "bottleneck": r.bottleneck,
+                         "output_bytes": counts["output_bytes"],
+                         "temp_bytes": counts["temp_bytes"],
+                         "measured_over_t_bound": ms / (1e3 * r.t_bound)})
+        mesh_shape = tuple(mesh.shape)
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(not dist.is_initialized(), "15 the group is destroyed")
+    launches = read_launches()
+    check(not any(launches.values()),
+          "15 the sharded steps launch none of the gene-search kernels")
+    rec = {"mesh": mesh_shape,
+           "lm_losses_plain": pl, "lm_losses_sharded": sl,
+           "lm_params_max_abs_err": param_err, "lm_routing_calls": len(pr),
+           "lm_step_ms_plain": [round(x, 3) for x in pms],
+           "lm_step_ms_sharded": [round(x, 3) for x in sms],
+           "lm_overhead_ms_median": round(float(np.median(sms[1:]) -
+                                                np.median(pms[1:])), 3),
+           "serve_ms_plain_median": round(float(np.median(plain_ms)), 3),
+           "serve_ms_sharded_median": round(float(np.median(sharded_ms)), 3),
+           "serve_overhead_ms_median": round(float(
+               np.median(sharded_ms) - np.median(plain_ms)), 3),
+           "serve_max_abs_err": serve_err, "roofline": rows,
+           "wall_s": round(time.perf_counter() - t_phase, 3)}
+    print(f"phase 15 the sharded step on the card: ok ({nvidia_smi()}) — "
+          f"make_host_mesh() over an NCCL group of 1; {LM_MOE} full width, "
+          f"{LM_CHECK_LAYERS} layers, f32, TF32 off, {TRAIN_CHECK_STEPS} AdamW "
+          f"steps sharded == plain (losses rtol 1e-3, parameters within "
+          f"{adamw_bound(3e-4, TRAIN_CHECK_STEPS)}, routing equal); SASRec "
+          f"serve_p99 sharded == plain; DTensor's overhead is the sharded "
+          f"minus the plain median (steps after the first); the dry run's "
+          f"sharded count of 14d's cells at one device; " + json.dumps(rec))
+    return rec
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--fabric-gateway"]:
         fabric_gateway(sys.argv[2])     # phase 8's gateway process
@@ -4327,7 +4514,8 @@ def main() -> None:
     free_card()
     int8_phase(dev)
     mesh_phase(dev)
-    roofline_phase(serve, eq_recs)
+    roof = roofline_phase(serve, eq_recs)
+    sharded_phase(dev, roof)
     for rec in kernels:
         rec["launches"] = sum(p[rec["name"]] for p in paths)
     print(f"total {time.perf_counter() - t_start:.1f} s")

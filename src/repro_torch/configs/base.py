@@ -38,6 +38,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import NamedSharding, axis_sizes
 from repro_torch.train.checkpoint import _flatten_with_paths
 
@@ -184,3 +185,31 @@ def generic_state_spec(path: str, shape: tuple) -> tuple:
     if len(shape) >= 2 and shape[int(order[1])] > 1:
         spec[int(order[1])] = "model"
     return tuple(spec)
+
+
+def cell_rules(spec: ArchSpec, cell: ShapeCell, mesh) -> sh.ShardingRules:
+    """The reference's rules for a cell's step: ``default_mapping`` on
+    ``mesh``, with the sequence-parallel residual stream for LM cells that
+    do not decode (training and prefill)."""
+    seq_parallel = spec.family == "lm" and cell.meta.get("mode") != "decode"
+    return sh.ShardingRules(mesh, sh.default_mapping(
+        mesh, seq_parallel=seq_parallel))
+
+
+def cell_shardings(spec: ArchSpec, cfg, mesh, state, batch
+                   ) -> tuple[dict, dict]:
+    """({path: NamedSharding} of ``state``, the same of ``batch``) by the
+    arch's spec functions, made valid on ``mesh``."""
+    return (tree_shardings(mesh, state,
+                           lambda p, s: spec.state_spec_fn(cfg, p, s)),
+            tree_shardings(mesh, batch,
+                           lambda p, s: spec.batch_spec_fn(cfg, p, s)))
+
+
+def distribute_cell(spec: ArchSpec, cfg, mesh, state, batch):
+    """``(state, batch)`` as DTensors on ``mesh``, laid out as
+    :func:`cell_shardings` says (each process keeps its own shards of the
+    trees it holds whole)."""
+    state_sh, batch_sh = cell_shardings(spec, cfg, mesh, state, batch)
+    return (sh.distribute_tree(state, state_sh),
+            sh.distribute_tree(batch, batch_sh))

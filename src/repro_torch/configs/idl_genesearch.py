@@ -5,8 +5,11 @@ through the shared query planner (port of
 :mod:`repro.configs.idl_genesearch`). The hashing scheme is selectable
 "idl" | "rh". The index is (m, F/32) int32 words (the reference's uint32
 words, same bits): rows replicated, the file slice over 'model'. The
-serve step does not call the reference's ``shard`` annotations (a no-op
-on one card).
+serve step carries the reference's two sharding constraints, the
+per-kmer words over ``("batch", None, "files")`` and the file mask over
+``("batch", "files")`` (the identity without rules). Its kernels and
+host planner need real data, so the dry run counts this cell from its
+shapes, not from a sharded run of the step.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import base
+from repro_torch.distributed.sharding import shard
 from repro_torch.index import query
 from repro_torch.serving import genesearch as gs
 
@@ -63,7 +67,9 @@ def step_fn(cfg: gs.GeneSearchConfig, cell: base.ShapeCell):
         plan = gs.query_plan(cfg, queries.shape[0], tuple(index.shape),
                              device=index.device)
         per_kmer = plan.execute(index, queries, backend="idl_probe")
-        return query.file_match_mask(per_kmer, cfg.theta)
+        per_kmer = shard(per_kmer, ("batch", None, "files"))
+        return shard(query.file_match_mask(per_kmer, cfg.theta),
+                     ("batch", "files"))
     return serve
 
 

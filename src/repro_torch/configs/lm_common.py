@@ -25,6 +25,7 @@ import torch
 from typing import Any
 
 from repro_torch.configs import base
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt_mod, train_state as ts
 
@@ -134,12 +135,12 @@ def step_fn(cfg: tf.LMConfig, cell: base.ShapeCell):
                                   microbatch=microbatch_for(cfg, cell))
     scfg = _serve_cfg(cfg, cell)
     if cell.meta["mode"] == "prefill":
-        @torch.inference_mode()
+        @sharding.inference
         def prefill(params, batch):
             return tf.lm_prefill(params, batch["tokens"], scfg)
         return prefill
 
-    @torch.inference_mode()
+    @sharding.inference
     def decode(state, batch):
         logits, cache = tf.lm_decode_step(
             state["params"], state["cache"], batch["tokens"], scfg

@@ -20,6 +20,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs import base
+from repro_torch.distributed import sharding
 from repro_torch.train import optimizer as opt_mod, train_state as ts
 
 DP = base.DP_AXES
@@ -95,7 +96,7 @@ def make_recsys_spec(
                 lambda p, b: loss_fn(p, b, cfg), opt_mod.adamw(1e-3))
         fn = score_fn if cell.meta["mode"] == "score" else retrieval_fn
 
-        @torch.inference_mode()
+        @sharding.inference
         def serve(params, batch):
             return fn(params, batch, cfg)
         return serve

@@ -19,7 +19,13 @@ def make_production_mesh(*, multi_pod: bool = False,
     Multi-pod: (pod=2, data=16, model=16) = 512 devices."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    if multi_pod:
+        # the data-parallel axes also as one flattened axis: a reduction
+        # over both (a data-parallel gradient) is then one all-reduce over
+        # their 32 devices, as XLA emits it, not one an axis
+        mesh["pod", "data"]._flatten("dp")
+    return mesh
 
 
 def make_host_mesh(device_type: str = "cuda") -> DeviceMesh:

@@ -22,9 +22,9 @@ built once per forward, outside the layer loop and outside autograd (they
 depend on positions only). Under autograd with ``cfg.remat`` each layer
 runs through :func:`repro_torch.models.remat.checkpoint` (the reference's
 ``jax.checkpoint`` of the scan body), so only each layer's input is kept.
-The reference's sharding constraints are dropped
-(:mod:`repro_torch.distributed.sharding` has ``shard``, which the model
-does not call).
+The reference's sharding constraints stand at its call sites, with its
+logical axes (:func:`~repro_torch.distributed.sharding.shard`: the
+identity without rules).
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from repro_torch.distributed.sharding import (gather_dims, grad_as_placed,
+                                              index_select, layout, like,
+                                              reduce_partial, rows, shard,
+                                              split_last, ways)
 from repro_torch.models import gnn_common, layers, remat, so3
 from repro_torch.models.layers import Params
 
@@ -171,6 +176,40 @@ def _m_index_tensor(cfg: EquiformerConfig, m: int,
     return torch.tensor(_m_indices(cfg, m), dtype=torch.int64, device=device)
 
 
+@lru_cache(maxsize=None)
+def _m_gather_tensor(cfg: EquiformerConfig,
+                     device: torch.device) -> torch.Tensor:
+    """For each of the K coefficients, its place among so2_conv's parts
+    (m = 0, 1, -1, 2, -2, ...), or the zero slot past them where |m| >
+    m_max."""
+    order = _m_indices(cfg, 0)
+    for m in range(1, cfg.m_max + 1):
+        order += _m_indices(cfg, m) + _m_indices(cfg, -m)
+    where = {k: i for i, k in enumerate(order)}
+    return torch.tensor([where.get(k, len(order))
+                         for k in range(cfg.n_coeff)], dtype=torch.int64,
+                        device=device)
+
+
+def _mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (N, n, C) @ w (C, D). Where x's rows are sharded unevenly (a
+    DTensor of a node count the mesh axis does not divide), as a product
+    batched over the rows: DTensor cannot fold uneven rows into the
+    product's rows, forward or backward."""
+    if x.shape[0] % ways(x, 0):
+        y = torch.bmm(x, w.expand(x.shape[0], *w.shape))
+    else:
+        y = x @ w
+    # its gradient laid out as y, so the product's backward folds the
+    # rows the forward folded
+    return grad_as_placed(y)
+
+
+def _channels(y: torch.Tensor, c: int) -> torch.Tensor:
+    """(E, n·c) -> (E, n, c)."""
+    return split_last(y, (y.shape[-1] // c, c))
+
+
 def so2_conv(lp: Params, x_rot: torch.Tensor, radial: torch.Tensor,
              cfg: EquiformerConfig) -> torch.Tensor:
     """SO(2) convolution in the edge frame, |m| <= m_max.
@@ -187,10 +226,10 @@ def so2_conv(lp: Params, x_rot: torch.Tensor, radial: torch.Tensor,
 
     def pick(m):
         idx = _m_index_tensor(cfg, m, dev)
-        return idx, x_rot.index_select(1, idx).reshape(e, -1)
+        return idx, index_select(x_rot, 1, idx).reshape(e, -1)
 
     idx0, h0 = pick(0)
-    y0 = (h0 @ lp["so2"]["w0_r"].to(dt)).reshape(e, -1, c) * radial[:, 0:1, :]
+    y0 = _channels(h0 @ lp["so2"]["w0_r"].to(dt), c) * radial[:, 0:1, :]
     idxs, parts = [idx0], [y0]
     for m in range(1, cfg.m_max + 1):
         ip, xp = pick(m)
@@ -201,9 +240,14 @@ def so2_conv(lp: Params, x_rot: torch.Tensor, radial: torch.Tensor,
         ym = xp @ wi + xm @ wr
         rad = radial[:, m: m + 1, :]
         idxs += [ip, im]
-        parts += [yp.reshape(e, -1, c) * rad, ym.reshape(e, -1, c) * rad]
-    return x_rot.new_zeros(x_rot.shape).index_copy(
-        1, torch.cat(idxs), torch.cat(parts, dim=1))
+        parts += [_channels(yp, c) * rad, _channels(ym, c) * rad]
+    parts = torch.cat(parts, dim=1)
+    if isinstance(parts, DTensor):
+        # the same output as a gather of the parts' coefficients (a zero
+        # slot for |m| > m_max): DTensor has no sharded index_copy
+        return index_select(torch.cat([parts, parts.new_zeros(e, 1, c)],
+                                      dim=1), 1, _m_gather_tensor(cfg, dev))
+    return x_rot.new_zeros(x_rot.shape).index_copy(1, torch.cat(idxs), parts)
 
 
 # --------------------------------------------------------------------------
@@ -215,13 +259,39 @@ def _edge_rotations(positions: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor, cfg: EquiformerConfig):
     """Per-degree Wigner blocks [(E, 2l+1, 2l+1)] — not the dense (E, K,
     K) block-diagonal, which is 81% zeros at l_max=6 — and the edge
-    lengths (E,). Positions carry no gradient, so neither do these."""
-    vec = positions[dst.long()] - positions[src.long()]
+    lengths (E,). Positions carry no gradient, so neither do these. On
+    DTensors each device computes its own edges' rotations as plain
+    tensors (every edge's is its own: the Wigner stage's thousands of
+    small operators then need no sharding strategy)."""
+    vec = rows(positions, dst.long()) - rows(positions, src.long())
+    if not isinstance(vec, DTensor):
+        return _rotations(vec, cfg)
+    vec = gather_dims(reduce_partial(vec), (1,))
+    mesh, where, e = vec.device_mesh, vec.placements, vec.shape[0]
+
+    def back(t):
+        shape = (e, *t.shape[1:])
+        return DTensor.from_local(t, mesh, where, run_check=False,
+                                  shape=shape, stride=_strides(shape))
+    mats, dist = _rotations(vec.to_local(), cfg)
+    return [back(m) for m in mats], back(dist)
+
+
+def _rotations(vec: torch.Tensor, cfg: EquiformerConfig):
+    """The Wigner blocks and lengths of edge vectors ``vec`` (E, 3)."""
     dist = torch.linalg.vector_norm(vec.float(), dim=-1) + 1e-9
     m3 = so3.rotation_to_z(vec.float())
     mats = so3.wigner_matrices(m3, cfg.l_max)     # [(E, 2l+1, 2l+1)]
-    return ([m.to(positions.dtype) for m in mats],
-            dist.to(positions.dtype))
+    return [m.to(vec.dtype) for m in mats], dist.to(vec.dtype)
+
+
+def _strides(shape: tuple) -> tuple:
+    """A contiguous tensor's strides."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
 
 
 def _rotate(mats: list, x: torch.Tensor, cfg: EquiformerConfig,
@@ -241,17 +311,18 @@ def _layer(lp: Params, x: torch.Tensor, dmat: list, dist: torch.Tensor,
     c = cfg.d_hidden
     e = src.shape[0]
     # gather + rotate into the edge frame (per-degree blocks)
-    x_src = x.index_select(0, src)                    # (E, K, C)
-    x_rot = _rotate(dmat, x_src, cfg)
+    x_src = index_select(x, 0, src)                   # (E, K, C)
+    x_rot = shard(_rotate(dmat, x_src, cfg), ("edges", None, None))
     # radial modulation
     rad = _rbf(dist, cfg)
     h = F.silu(rad @ lp["radial"]["w1"].to(dt))
-    radial = (h @ lp["radial"]["w2"].to(dt)).reshape(-1, cfg.m_max + 1, c)
+    radial = _channels(h @ lp["radial"]["w2"].to(dt), c)
     msg_rot = so2_conv(lp, x_rot, radial, cfg)
     # rotate back (D^T = D^{-1}, per degree)
-    msg = _rotate(dmat, msg_rot, cfg, transpose=True)
+    msg = shard(_rotate(dmat, msg_rot, cfg, transpose=True),
+                ("edges", None, None))
     # scalar-channel attention over incoming edges
-    inv_t = x[:, 0, :].index_select(0, dst)
+    inv_t = index_select(x[:, 0, :], 0, dst)
     inv_s = x_src[:, 0, :]
     inv_m = msg[:, 0, :]
     alpha_in = torch.cat([inv_t, inv_s, inv_m], dim=-1)
@@ -262,14 +333,15 @@ def _layer(lp: Params, x: torch.Tensor, dmat: list, dist: torch.Tensor,
     mh = msg.reshape(e, cfg.n_coeff, cfg.n_heads, c // cfg.n_heads)
     mh = mh * alpha[:, None, :, None]
     agg = gnn_common.segment_sum(mh.reshape(e, cfg.n_coeff, c), dst, n_nodes)
-    x = x + agg
+    # the edges' partial sums reduced onto the nodes' own layout
+    x = x + like(agg, x)
     # equivariant FFN: scalar-gated per-degree channel mix
     x = equiv_layernorm(x, lp["ln_scale"], cfg)
     gates = torch.sigmoid(
         x[:, 0, :] @ lp["ffn"]["gate"].to(dt)).reshape(-1, cfg.l_max + 1, c)
     outs = []
     for l, (off, w) in enumerate(cfg.degree_slices()):
-        blk = x[:, off: off + w, :] @ lp["ffn"]["wl"][l].to(dt)
+        blk = _mix(x[:, off: off + w, :], lp["ffn"]["wl"][l].to(dt))
         outs.append(blk * gates[:, l: l + 1, :])
     return x + torch.cat(outs, dim=1)
 
@@ -288,11 +360,16 @@ def equiformer_forward(params: Params, batch: dict,
     x0 = feats @ params["embed"].to(dt)               # (N, C)
     x = torch.cat([x0[:, None, :],
                    x0.new_zeros((n, cfg.n_coeff - 1, cfg.d_hidden))], dim=1)
-    src, dst = batch["src"].long(), batch["dst"].long()
+    x = shard(x, ("nodes", None, None))
+    # the edge inputs in the edge messages' layout (the batch may split
+    # them over more axes)
+    src, dst, edge_mask = (layout(batch[k], ("edges",))
+                           for k in ("src", "dst", "edge_mask"))
+    src, dst = src.long(), dst.long()
     dmat, dist = _edge_rotations(batch["positions"].to(dt), src, dst, cfg)
     recompute = cfg.remat and torch.is_grad_enabled()
     for lp in layers.unstack(params["layers"], cfg.n_layers):
-        args = (lp, x, dmat, dist, src, dst, batch["edge_mask"], n, cfg)
+        args = (lp, x, dmat, dist, src, dst, edge_mask, n, cfg)
         if recompute:
             x = remat.checkpoint(_layer, *args)
         else:
@@ -307,7 +384,8 @@ def equiformer_loss(params: Params, batch: dict, cfg: EquiformerConfig):
         labels = batch["labels"]
         lm = mask * (labels >= 0)
         logz = torch.logsumexp(out, dim=-1)
-        ll = torch.gather(out, -1, labels.clamp(min=0).long()[:, None])[:, 0]
+        ll = reduce_partial(torch.gather(
+            out, -1, labels.clamp(min=0).long()[:, None]))[:, 0]
         ce = -((ll - logz) * lm).sum() / torch.clamp(lm.sum(), min=1.0)
         return ce, {"ce": ce}
     # graph energy regression: sum node scalars per graph

@@ -4,9 +4,13 @@ Port of :mod:`repro.models.gnn_common`. Message passing runs over an edge
 index: ``segment_sum`` is ``index_add`` (whose atomics on CUDA add in no
 fixed order, so the card matches the CPU within rounding, not bit for
 bit) and ``segment_max`` is ``scatter_reduce("amax")`` into a tensor
-filled with -inf. The fanout sampler and the CSR graph are the
-reference's host-side numpy, copied: the same seed gives the same
-subgraph.
+filled with -inf. On DTensors (a sharded step), each device reduces its
+own rows of an edge-sharded tensor and the results are combined across
+the devices (a ``Partial`` sum or max, the reduction GSPMD emits for a
+segment reduction over a sharded dim): DTensor has no sharding strategy
+for ``index_add`` or ``scatter_reduce``. The fanout sampler and the CSR
+graph are the reference's host-side numpy, copied: the same seed gives
+the same subgraph.
 """
 
 from __future__ import annotations
@@ -15,14 +19,77 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.sharding import rows
+
+
+def _by_rows(fn, values: torch.Tensor, ids: torch.Tensor, reduce: str):
+    """``fn(values, ids)``, a reduction of rows into segments. On DTensors
+    each device runs ``fn`` on its own rows (``values`` laid out over the
+    rows as ``ids`` is, a row sharding of ``ids`` being ``Shard(0)``) and
+    the result is ``Partial(reduce)`` over the mesh axes that split the
+    rows."""
+    if not isinstance(values, DTensor) and not isinstance(ids, DTensor):
+        return fn(values, ids)
+    mesh = (values if isinstance(values, DTensor) else ids).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, whole, run_check=False)
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, mesh, whole, run_check=False)
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in ids.placements]
+    ids = ids.redistribute(mesh, rows)
+    values = values.redistribute(mesh, rows)
+    out = fn(values.to_local(), ids.to_local())
+    return _Partial.apply(out, mesh, tuple(
+        Partial(reduce) if isinstance(p, Shard) else p for p in rows))
+
+
+class _Partial(torch.autograd.Function):
+    """Each device's whole-shaped local result as a DTensor partial over
+    the given mesh dims; its gradient, the whole gradient on every device
+    (``from_local`` would ask DTensor to redistribute a sharded gradient
+    to a partial one, which it cannot)."""
+
+    @staticmethod
+    def forward(ctx, out, mesh, placements):
+        ctx.mesh = mesh
+        return DTensor.from_local(out, mesh, placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = [Replicate()] * ctx.mesh.ndim
+        return grad.redistribute(ctx.mesh, whole).to_local(), None, None
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum of the rows of ``values`` sharing a segment id (ids in
     ``[0, num_segments)``); an empty segment sums to 0."""
-    out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
-    return out.index_add(0, segment_ids, values)
+    def add(v, i):
+        return v.new_zeros((num_segments,) + tuple(v.shape[1:])).index_add(
+            0, i, v)
+    return _by_rows(add, values, segment_ids, "sum")
+
+
+def _segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Max of the rows of ``values`` sharing a segment id (-inf where a
+    segment is empty). On DTensors the max carries no gradient: a
+    device's own max is not the segment's, and the softmax that takes it
+    is shift-invariant (its gradient through the max is zero up to
+    rounding)."""
+    if isinstance(values, DTensor):
+        values = values.detach()
+
+    def amax(v, i):
+        idx = i.view(-1, *([1] * (v.dim() - 1))).expand_as(v)
+        return v.new_full((num_segments,) + tuple(v.shape[1:]),
+                          float("-inf")).scatter_reduce(
+            0, idx, v, reduce="amax", include_self=False)
+    return _by_rows(amax, values, segment_ids, "max")
 
 
 def segment_softmax(
@@ -30,15 +97,12 @@ def segment_softmax(
 ) -> torch.Tensor:
     """Softmax over entries sharing a segment id (edge-softmax)."""
     seg = segment_ids.long()
-    idx = seg.view(-1, *([1] * (logits.dim() - 1))).expand_as(logits)
-    maxes = logits.new_full((num_segments,) + tuple(logits.shape[1:]),
-                            float("-inf")).scatter_reduce(
-        0, idx, logits, reduce="amax", include_self=False)
+    maxes = _segment_max(logits, seg, num_segments)
     maxes = torch.where(torch.isfinite(maxes), maxes, 0.0)
-    shifted = logits - maxes[seg]
+    shifted = logits - rows(maxes, seg)
     ex = torch.exp(shifted)
     denom = segment_sum(ex, seg, num_segments)
-    return ex / (denom[seg] + 1e-9)
+    return ex / (rows(denom, seg) + 1e-9)
 
 
 def scatter_mean(

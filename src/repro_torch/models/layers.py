@@ -5,8 +5,9 @@ under the reference's keys (``wq``, ``wk``, ``wv``, ``wo``, ``wi``,
 ``wg``); every apply function takes ``(params, inputs, cfg)``. The compute
 dtype is the input's; weights are stored f32 (or bf16 under
 ``param_dtype``) and cast on use. The reference's sharding constraints
-are dropped: :mod:`repro_torch.distributed.sharding` has ``shard`` and
-the rules, which these functions do not call.
+stand where the reference has them, with its logical axes
+(:func:`~repro_torch.distributed.sharding.shard`: the identity without
+rules, a DTensor redistribution under them).
 
 Initialisers draw from a ``torch.Generator`` on the target device, so the
 same seed gives the same weights on one device type (the values differ
@@ -27,6 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (gather_dims, grad_as_placed,
+                                              layout, like, merge_last, shard,
+                                              shard_if_divisible, split_last,
+                                              ways)
 
 Params = dict
 
@@ -83,8 +90,16 @@ def unstack(stacked: Params, n: int) -> list:
 
 # module-level recursions: recursive closures would be reference cycles
 def _unbind_tree(tree: Params) -> Params:
-    return {k: _unbind_tree(v) if isinstance(v, dict) else torch.unbind(v, 0)
+    return {k: _unbind_tree(v) if isinstance(v, dict) else _unbind(v)
             for k, v in tree.items()}
+
+
+def _unbind(v: torch.Tensor) -> tuple:
+    # a DTensor sharded over its layer dim gathers it first (DTensor cannot
+    # unbind a sharded dim), and each slice's gradient comes back in the
+    # slice's layout (DTensor stacks gradients of one layout only)
+    return tuple(grad_as_placed(p)
+                 for p in torch.unbind(gather_dims(v, (0,)), 0))
 
 
 def _pick(tree: Params, i: int) -> Params:
@@ -185,9 +200,15 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32, *,
 def _qkv(params: Params, x: torch.Tensor, cfg: AttnConfig):
     b, s, _ = x.shape
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    # the sequence whole inside the block (Megatron's all-gather at a
+    # sequence-parallel stream's edge; a no-op on a plain tensor)
+    x = layout(x, ("batch", "act_seq", "embed"))
+    q = split_last(x @ params["wq"].to(dt), (cfg.n_heads, cfg.d_head))
+    k = split_last(x @ params["wk"].to(dt), (cfg.n_kv_heads, cfg.d_head))
+    v = split_last(x @ params["wv"].to(dt), (cfg.n_kv_heads, cfg.d_head))
+    q = shard(q, ("batch", "act_seq", "heads", None))
+    k = shard_if_divisible(k, ("batch", "act_seq", "kv_heads", None), dim=2)
+    v = shard_if_divisible(v, ("batch", "act_seq", "kv_heads", None), dim=2)
     return q, k, v
 
 
@@ -201,6 +222,27 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     if cfg.window:
         mask &= q_pos[:, None] - k_pos[None, :] < cfg.window
     return mask
+
+
+def _group(q, k, v, cfg: AttnConfig, logical=None):
+    """``(qg (B, S, h, g, d), k, v (B, S_k, h, d))``: the query heads in
+    groups over the KV heads. Where the query heads are sharded more ways
+    than the KV heads divide (a DTensor over a model axis wider than the
+    KV heads), each KV head is repeated over its group instead (h = H,
+    g = 1): the same scores, with the heads split locally, the repeated
+    keys and values laid out by ``logical`` (as the queries are)."""
+    b, s = q.shape[:2]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % ways(q, 2) == 0:
+        return q.reshape(b, s, cfg.n_kv_heads, groups, cfg.d_head), k, v
+
+    def rep(t):
+        n = t.shape[1]
+        t = t[:, :, :, None].expand(b, n, cfg.n_kv_heads, groups,
+                                    cfg.d_head).reshape(
+            b, n, cfg.n_heads, cfg.d_head)
+        return t if logical is None else layout(t, logical)
+    return q[:, :, :, None], rep(k), rep(v)
 
 
 def _scores_to_out(qg, k, v, mask, cfg: AttnConfig, dt) -> torch.Tensor:
@@ -227,20 +269,20 @@ def attend(params: Params, x: torch.Tensor, cfg: AttnConfig,
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    groups = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, s, cfg.n_kv_heads, groups, cfg.d_head)
+    qg, kh, vh = _group(q, k, v, cfg, ("batch", "act_seq", "heads", None))
     kk = torch.arange(s, device=x.device)
     if chunk and s % chunk == 0:
         # the flash-attention outer loop: never the (S, S) score matrix,
         # one (B, H, chunk, S) buffer at a time (the reference's lax.map)
         out = torch.cat([
-            _scores_to_out(qg[:, i:i + chunk], k, v,
+            _scores_to_out(qg[:, i:i + chunk], kh, vh,
                            _mask(kk[i:i + chunk], kk, cfg), cfg, dt)
             for i in range(0, s, chunk)], dim=1)
+        out = shard(merge_last(out, 3), ("batch", "act_seq", "heads"))
     else:
-        out = _scores_to_out(qg, k, v, _mask(kk, kk, cfg), cfg, dt)
-    out = out.reshape(b, s, -1)
-    return out @ params["wo"].to(dt), k, v
+        out = _scores_to_out(qg, kh, vh, _mask(kk, kk, cfg), cfg, dt)
+        out = shard(merge_last(out, 3), ("batch", "act_seq", "heads"))
+    return like(out @ params["wo"].to(dt), x), k, v
 
 
 def attention(params: Params, x: torch.Tensor, cfg: AttnConfig,
@@ -285,20 +327,28 @@ def attention_decode(
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     # the cache keeps ITS dtype (bf16 in production even under f32 params)
-    slot = cache_len.long().clamp(max=s_max - 1)
-    idx = slot.view(b, 1, 1, 1).expand(b, 1, cfg.n_kv_heads, cfg.d_head)
-    inside = (cache_len < s_max).view(b, 1, 1, 1)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        old = cache.gather(1, idx)
-        cache.scatter_(1, idx, torch.where(inside, new.to(cache.dtype), old))
-    groups = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, 1, cfg.n_kv_heads, groups, cfg.d_head)
+    if isinstance(k_cache, DTensor):
+        # the reference's one-hot blend, local on a sequence-sharded cache
+        # (a scatter into the sharded dim has no local form)
+        hot = (torch.arange(s_max, device=x.device)[None, :]
+               == cache_len[:, None])[..., None, None]
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            cache.copy_(torch.where(hot, new.to(cache.dtype), cache))
+    else:
+        slot = cache_len.long().clamp(max=s_max - 1)
+        idx = slot.view(b, 1, 1, 1).expand(b, 1, cfg.n_kv_heads, cfg.d_head)
+        inside = (cache_len < s_max).view(b, 1, 1, 1)
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            old = cache.gather(1, idx)
+            cache.scatter_(1, idx,
+                           torch.where(inside, new.to(cache.dtype), old))
     k = k_cache if k_cache.dtype == dt else k_cache.to(dt)
+    qg, k, v = _group(q, k, v_cache, cfg)
     valid = (torch.arange(s_max, device=x.device)[None, :]
              <= cache_len[:, None])                      # (B, S_max)
-    out = _scores_to_out(qg, k, v_cache, valid[:, None, None, None, :], cfg,
+    out = _scores_to_out(qg, k, v, valid[:, None, None, None, :], cfg,
                          dt).reshape(b, 1, -1)
-    return out @ params["wo"].to(dt), k_cache, v_cache
+    return like(out @ params["wo"].to(dt), x), k_cache, v_cache
 
 
 # --------------------------------------------------------------------------
@@ -326,10 +376,15 @@ def mlp_init(gen: torch.Generator, cfg: MlpConfig, dtype=torch.float32, *,
 
 def mlp(params: Params, x: torch.Tensor, cfg: MlpConfig) -> torch.Tensor:
     dt = x.dtype
-    h = x @ params["wi"].to(dt)
+    stream, x = x, layout(x, ("batch", "act_seq", "embed"))
+    # the weights split over d_ff as the hidden activation is, so each
+    # device computes its own columns (GSPMD partitions the products so)
+    wi, wo = (layout(params["wi"], (None, "mlp")),
+              layout(params["wo"], ("mlp", None)))
+    h = shard(x @ wi.to(dt), ("batch", "act_seq", "mlp"))
     if cfg.gated:
-        g = x @ params["wg"].to(dt)
+        g = x @ layout(params["wg"], (None, "mlp")).to(dt)
         h = activation(cfg.act, g) * h
     else:
         h = activation(cfg.act, h)
-    return h @ params["wo"].to(dt)
+    return like(h @ wo.to(dt), stream)

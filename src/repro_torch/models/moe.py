@@ -8,7 +8,9 @@ scatter-add by index. Load-balance aux loss per Switch Transformer.
 Both of the reference's dispatch paths are one routine here: global
 dispatch is group-local dispatch over one group (the reference's two
 bodies compute the same values), and :func:`moe` keeps the reference's
-branch rule. The combine's scatter-add (atomic on the card) adds in an
+branch rule, and each path's sharding constraints (the global path's
+``(tokens, d)`` and ``(E, C, d)`` layouts, the grouped path's ``(G, ...)``
+ones). The combine's scatter-add (atomic on the card) adds in an
 order the device picks, so the port equals the reference within a float
 tolerance, never bit for bit; routing indices and drops are exact.
 """
@@ -20,6 +22,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_dims, shard
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
 
@@ -81,7 +84,7 @@ def route(params: Params, x: torch.Tensor, cfg: MoeConfig, groups: int = 1):
     tg = t // groups
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(tg, cfg)
-    xg = x.reshape(groups, tg, d)
+    xg = _tokens(x, groups)
     logits = xg.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)                   # (G, tg, E)
     gate_vals, gate_idx = top_k(probs, k)                   # (G, tg, k)
@@ -92,6 +95,28 @@ def route(params: Params, x: torch.Tensor, cfg: MoeConfig, groups: int = 1):
     pos = torch.sum(pos_in_expert * flat_oh, dim=-1)        # (G, tg·k)
     keep = pos < cap
     return probs, gate_vals, gate_idx, pos, keep, cap
+
+
+def _tokens(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``x`` (B, S, d) as ``groups`` token groups (G, T / G, d), laid out
+    as the reference lays out its dispatch input: the global path's (T, d)
+    and the grouped path's (G, T / G, d) over the token axes. A DTensor
+    first gathers its sequence dim, so that merging it into the token dim
+    is a local reshape."""
+    b, s, d = x.shape
+    x = gather_dims(x, (1,))
+    if groups == 1:
+        return shard(x.reshape(b * s, d), ("tokens", None))[None]
+    return shard(x.reshape(groups, b * s // groups, d), ("tokens", None, None))
+
+
+def _experts(xe: torch.Tensor, glob: bool) -> torch.Tensor:
+    """The (G, E, C, d) expert slots in the reference's layout: (E, C, d)
+    over experts and capacity on the global path, (G, E, C, d) over token
+    groups and experts on the grouped one."""
+    if glob:
+        return shard(xe[0], ("experts", "expert_cap", None))[None]
+    return shard(xe, ("tokens", "experts", None, None))
 
 
 def moe(params: Params, x: torch.Tensor,
@@ -115,7 +140,8 @@ def moe_grouped(params: Params, x: torch.Tensor, cfg: MoeConfig,
     G = groups or cfg.dispatch_groups
     tg = t // G
     e, k = cfg.n_experts, cfg.top_k
-    probs, gate_vals, gate_idx, pos, keep, cap = route(params, x, cfg, G)
+    xs = gather_dims(x, (1,))       # the reshape into groups, once
+    probs, gate_vals, gate_idx, pos, keep, cap = route(params, xs, cfg, G)
     expert = gate_idx.reshape(G, tg * k)
     token_ids = torch.arange(tg, device=x.device).repeat_interleave(k)
     token_ids = token_ids[None].expand(G, tg * k)
@@ -123,23 +149,25 @@ def moe_grouped(params: Params, x: torch.Tensor, cfg: MoeConfig,
     # the (E, C) dispatch table of each group; a dropped choice writes to
     # one spare slot past the table (the reference's out-of-bounds drop)
     slot = torch.where(keep, expert * cap + pos, e * cap)
-    dispatch = torch.full((G, e * cap + 1), tg, dtype=torch.long,
-                          device=x.device)
-    dispatch.scatter_(1, slot, token_ids)
-    dispatch = dispatch[:, :e * cap]
+    dispatch = torch.scatter(
+        torch.full((G, e * cap + 1), tg, dtype=torch.long, device=x.device),
+        1, slot, token_ids)[:, :e * cap]
 
     # gather tokens (an empty slot, id tg, reads a zero row); run the
     # expert FFNs over E
-    xg = torch.cat([x.reshape(G, tg, d), x.new_zeros(G, 1, d)], dim=1)
+    glob = G == 1
+    xg = _tokens(xs, G)
+    xg = torch.cat([xg, xg.new_zeros(G, 1, d)], dim=1)
     xe = torch.gather(xg, 1, dispatch[..., None].expand(G, e * cap, d))
-    xe = xe.reshape(G, e, cap, d)
+    xe = _experts(xe.reshape(G, e, cap, d), glob)
     h = torch.einsum("gecd,edf->gecf", xe, params["wi"].to(dt))
     if cfg.gated:
         gg = torch.einsum("gecd,edf->gecf", xe, params["wg"].to(dt))
         h = layers.activation(cfg.act, gg) * h
     else:
         h = layers.activation(cfg.act, h)
-    ye = torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt))
+    ye = _experts(torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt)),
+                  glob)
 
     # token-major combine: each token's k expert outputs, weighted, then a
     # group-local scatter-add (dropped choices go to a spare row)
@@ -149,10 +177,12 @@ def moe_grouped(params: Params, x: torch.Tensor, cfg: MoeConfig,
         ye.reshape(G, e * cap, d), 1,
         torch.where(keep, expert * cap + pos, 0)[..., None].expand(
             G, tg * k, d))
-    out = torch.zeros((G, tg + 1, d), dtype=dt, device=x.device)
-    out.scatter_add_(1, src_token[..., None].expand(G, tg * k, d),
-                     picked * gate_flat[..., None].to(dt))
-    out = out[:, :tg]
+    out = torch.scatter_add(
+        torch.zeros((G, tg + 1, d), dtype=dt, device=x.device), 1,
+        src_token[..., None].expand(G, tg * k, d),
+        picked * gate_flat[..., None].to(dt))[:, :tg]
+    out = (shard(out[0], ("tokens", None)) if glob
+           else shard(out, ("tokens", None, None)))
 
     # Switch aux loss: E * sum(frac_tokens_e * mean_prob_e)
     frac = torch.mean(F.one_hot(gate_idx[..., 0], e).float(), dim=(0, 1))

@@ -20,8 +20,9 @@ Parameters are nested dicts of tensors under the reference's keys; each
 ``jax.random``'s; :mod:`repro_torch.models.convert` carries a reference
 tree across). SASRec's per-block leaves are stacked on axis 0, as the
 reference's ``vmap``ped init stacks them. The reference's sharding
-constraints are dropped (:mod:`repro_torch.distributed.sharding` has
-``shard``, which these functions do not call).
+constraints stand at its call sites, with its logical axes
+(:func:`~repro_torch.distributed.sharding.shard`: the identity without
+rules).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from repro_torch.core import hashing
+from repro_torch.distributed.sharding import lookup, reduce_partial, shard
 from repro_torch.models import layers, remat
 from repro_torch.models.layers import Params
 
@@ -79,7 +81,11 @@ def hash_rows(ids: torch.Tensor, n_rows: int, scheme: str = "none",
 
 
 def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``table[rows]`` for int32 rows of any shape: (*rows.shape, d)."""
+    """``table[rows]`` for int32 rows of any shape: (*rows.shape, d) (on
+    a DTensor table, each device's own rows, :func:`sharding.lookup`)."""
+    got = lookup(table, rows)
+    if got is not None:
+        return got
     return table.index_select(0, rows.reshape(-1)).reshape(
         *rows.shape, table.shape[1])
 
@@ -146,7 +152,8 @@ def fm_forward(params: Params, feats: torch.Tensor,
                                 device=feats.device) * cfg.vocab_per_field
     ids = feats + field_offset[None, :]
     rows = hash_rows(ids, params["tables"].shape[0], cfg.hash_scheme)
-    v = take_rows(params["tables"], rows)                # (B, F, k)
+    v = shard(take_rows(params["tables"], rows),         # (B, F, k)
+              ("batch", None, None))
     lin = take_rows(params["linear"], rows)[..., 0].sum(-1)
     s = v.sum(dim=1)                                     # Σ v_i x_i
     pair = 0.5 * ((s * s).sum(-1) - (v * v).sum(dim=(1, 2)))
@@ -231,8 +238,10 @@ def twotower_embed(params: Params, batch: dict, cfg: TwoTowerConfig):
                       cfg.hash_scheme)
     iraw = _flat_rows(params["item_table"], batch["item_feats"], cfg.n_items,
                       cfg.hash_scheme)
-    u = _tower(params["user_tower"], uraw, cfg.tower_dims)
-    it = _tower(params["item_tower"], iraw, cfg.tower_dims)
+    u = _tower(params["user_tower"], shard(uraw, ("batch", None)),
+               cfg.tower_dims)
+    it = _tower(params["item_tower"], shard(iraw, ("batch", None)),
+                cfg.tower_dims)
     return u, it
 
 
@@ -245,7 +254,7 @@ def _inbatch_nll_rows(u_rows: torch.Tensor, it: torch.Tensor,
     item is its positive, the batch's other items its negatives."""
     logits = (u_rows @ it.T) / temperature        # (rows, B)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, 1, rows[:, None])[:, 0] - logz
+    ll = reduce_partial(torch.gather(logits, 1, rows[:, None]))[:, 0] - logz
     return -ll.sum()
 
 
@@ -273,12 +282,14 @@ def twotower_loss(params: Params, batch: dict, cfg: TwoTowerConfig):
 def twotower_score_candidates(params: Params, batch: dict,
                               cfg: TwoTowerConfig) -> torch.Tensor:
     """retrieval_cand shape: one query vs n_candidates items (batched dot)."""
-    u = _tower(params["user_tower"],
-               _flat_rows(params["user_table"], batch["user_feats"],
-                          cfg.n_users, cfg.hash_scheme), cfg.tower_dims)
+    uraw = _flat_rows(params["user_table"], batch["user_feats"],
+                      cfg.n_users, cfg.hash_scheme)
+    u = _tower(params["user_tower"], shard(uraw, ("batch", None)),
+               cfg.tower_dims)
     iraw = _flat_rows(params["item_table"], batch["cand_feats"], cfg.n_items,
                       cfg.hash_scheme)
-    it = _tower(params["item_tower"], iraw, cfg.tower_dims)
+    it = _tower(params["item_tower"], shard(iraw, ("batch", None)),
+                cfg.tower_dims)
     return (it @ u[0]).float()                     # (n_candidates,)
 
 
@@ -330,6 +341,7 @@ def sasrec_forward(params: Params, seq: torch.Tensor,
     rows = hash_rows(seq, cfg.n_items, cfg.hash_scheme)
     x = take_rows(params["item_table"], rows)
     x = x + params["pos"][None, : seq.shape[1], :].to(x.dtype)
+    x = shard(x, ("batch", "seq", None))
     for bp in layers.unstack(params["blocks"], cfg.n_blocks):
         h = layers.rmsnorm(x, bp["ln1"])
         x = x + layers.attention(bp["attn"], h, cfg.attn_cfg())
@@ -390,6 +402,7 @@ def mind_interests(params: Params, seq: torch.Tensor, mask: torch.Tensor,
     """Dynamic routing: (B, S) history -> (B, K, d) interest capsules."""
     e = take_rows(params["item_table"],
                   hash_rows(seq, cfg.n_items, cfg.hash_scheme))  # (B, S, d)
+    e = shard(e, ("batch", "seq", None))
     u = e @ params["S"].to(e.dtype)                              # behaviour caps
     b = torch.zeros((seq.shape[0], cfg.n_interests, seq.shape[1]),
                     dtype=torch.float32, device=seq.device)

@@ -17,9 +17,10 @@ autograd, ``cfg.remat`` checkpoints each layer
 recomputed in backward, so only each layer's input is kept. The loss's
 sequence chunks are checkpointed likewise, so one chunk's logits are
 live at a time. Serving runs without autograd and never checkpoints.
-The reference's sharding constraints exist only for XLA and are dropped
-(:mod:`repro_torch.distributed.sharding` has ``shard`` and the rules,
-which these functions do not call).
+The reference's sharding constraints stand at its call sites, with its
+logical axes (:func:`~repro_torch.distributed.sharding.shard`: the
+identity without rules; under rules, on DTensor state, a
+redistribution).
 :class:`TransformerLM` holds such a tree as an ``nn.Module`` (its
 ``state_dict`` keys are the reference's paths); the functions take the
 plain dict (``model.params()``), as the reference's do.
@@ -32,6 +33,10 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import (contract_as, lookup,
+                                              reduce_partial, shard)
 from repro_torch.models import layers, moe as moe_mod, remat
 from repro_torch.models.layers import Params
 
@@ -207,24 +212,75 @@ def layer_params(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+# logical specs of layer weights once gathered over the FSDP axis: only
+# the TP axis remains (the reference's per-layer weight all-gather)
+_GATHERED_SPECS = {
+    "wq": (None, "heads"), "wk": (None, "heads"), "wv": (None, "heads"),
+    "wo": ("heads", None),
+    "wi": (None, "mlp"), "wg": (None, "mlp"),
+}
+
+
+def _gather_fsdp(lp: Params) -> Params:
+    """Layer weights laid out dp-gathered (TP only)."""
+    out = {}
+    for k, v in lp.items():
+        if isinstance(v, dict):
+            if k == "moe":
+                out[k] = _gather_moe(v)
+            else:
+                out[k] = {
+                    kk: shard(vv, _GATHERED_SPECS[kk])
+                    if kk in _GATHERED_SPECS and vv.ndim == 2 else vv
+                    for kk, vv in v.items()
+                }
+        else:
+            out[k] = v
+    return out
+
+
+def _gather_moe(mp: Params) -> Params:
+    out = {}
+    for k, v in mp.items():
+        if k in ("wi", "wg", "wo") and not isinstance(v, dict):
+            out[k] = shard(v, ("experts", None, None))  # EP stays; dp gathered
+        elif k == "residual" and isinstance(v, dict):
+            out[k] = {
+                kk: shard(vv, _GATHERED_SPECS[kk])
+                if kk in _GATHERED_SPECS and vv.ndim == 2 else vv
+                for kk, vv in v.items()
+            }
+        else:
+            out[k] = v
+    return out
+
+
 def _block(cfg: LMConfig, lp: Params, x: torch.Tensor,
            positions: torch.Tensor):
     """One layer over the whole sequence: ``(x, aux, k, v)`` with the
     layer's post-RoPE keys and its values (the prefill's cache)."""
+    lp = _gather_fsdp(lp)
     h = layers.rmsnorm(x, lp["ln1"])
     a, k, v = layers.attend(lp["attn"], h, cfg.attn_cfg(), positions,
                             chunk=cfg.attn_chunk)
-    x = x + a
+    # the residual sum back in the seq-sharded stream
+    x = shard(x + a, ("batch", "seq", "embed"))
     h = layers.rmsnorm(x, lp["ln2"])
     if cfg.moe is not None:
         y, aux = moe_mod.moe(lp["moe"], h, cfg.moe)
     else:
         y, aux = layers.mlp(lp["mlp"], h, cfg.mlp_cfg()), 0.0
-    return x + y, aux, k, v
+    return shard(x + y, ("batch", "seq", "embed")), aux, k, v
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(params["ln_f"].dtype)
+def _embed(params: Params, tokens: torch.Tensor,
+           embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tokens' rows of ``embed`` (default the parameter), in the
+    parameters' dtype; a DTensor table answers from each device's rows
+    (:func:`sharding.lookup`)."""
+    embed = params["embed"] if embed is None else embed
+    got = lookup(embed, tokens)
+    return (embed[tokens] if got is None else got).to(params["ln_f"].dtype)
 
 
 def lm_hidden(params: Params, tokens: torch.Tensor,
@@ -232,7 +288,9 @@ def lm_hidden(params: Params, tokens: torch.Tensor,
     """tokens (B, S) int -> (final hidden (B, S, d), moe aux loss).
 
     Under autograd with ``cfg.remat`` each layer runs checkpointed."""
-    x = _embed(params, tokens)
+    # the embedding gathered over dp once (vocab stays TP-sharded)
+    embed = shard(params["embed"], ("vocab", None))
+    x = shard(_embed(params, tokens, embed), ("batch", "seq", "embed"))
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -248,24 +306,26 @@ def lm_hidden(params: Params, tokens: torch.Tensor,
 
 def _unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    if "unembed" in params:
-        return x @ params["unembed"].to(dt)
-    return x @ params["embed"].T.to(dt)
+    w = params["unembed"] if "unembed" in params else params["embed"].T
+    # contracted over d as the weight splits d (the reference's unembed
+    # stays split on d)
+    return contract_as(x, w) @ w.to(dt)
 
 
 def lm_forward(params: Params, tokens: torch.Tensor,
                cfg: LMConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (logits (B, S, V) f32, aux loss)."""
     x, aux = lm_hidden(params, tokens, cfg)
-    return _unembed(params, x).float(), aux
+    return shard(_unembed(params, x).float(), ("batch", "seq", "vocab")), aux
 
 
 def _ce_chunk(params: Params, xc: torch.Tensor, lc: torch.Tensor):
     """One sequence chunk's (-sum log-likelihood, sum logz^2, label count)
     over its unmasked labels (``< 0`` masked, after clipping to 0)."""
-    logits = _unembed(params, xc).float()
+    logits = shard(_unembed(params, xc).float(), ("batch", "seq", "vocab"))
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    ll = reduce_partial(torch.gather(
+        logits, -1, lc.clamp(min=0).long()[..., None]))[..., 0]
     ll = ll - logz
     mask = (lc >= 0).float()
     return -(ll * mask).sum(), ((logz * mask) ** 2).sum(), mask.sum()
@@ -311,15 +371,26 @@ def lm_prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig):
     The cache stores POST-RoPE keys (``attention_decode`` rotates only the
     incoming token and scores against the cache as-is), in bf16 whatever
     the parameters' dtype, as the reference's does."""
-    x = _embed(params, tokens)
+    x = shard(_embed(params, tokens), ("batch", "seq", "embed"))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    vs = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    if isinstance(x, DTensor):
+        # a DTensor layer's keys keep their layout: stacked at the end
+        ks, vs = [], []
+    else:
+        ks = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+        vs = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
     for i in range(cfg.n_layers):
-        x, _, ks[i], vs[i] = _block(cfg, layer_params(params["layers"], i),
-                                    x, positions)
+        x, _, k, v = _block(cfg, layer_params(params["layers"], i), x,
+                            positions)
+        if isinstance(ks, list):
+            ks.append(k.to(torch.bfloat16))
+            vs.append(v.to(torch.bfloat16))
+        else:
+            ks[i], vs[i] = k, v
+    if isinstance(ks, list):
+        ks, vs = torch.stack(ks), torch.stack(vs)
     x = layers.rmsnorm(x, params["ln_f"])
     logits = _unembed(params, x[:, -1, :]).float()
     cache = {"k": ks, "v": vs,
@@ -347,9 +418,10 @@ def lm_decode_step(params: Params, cache: Params, tokens: torch.Tensor,
 
     The new token's keys and values are written into ``cache``'s tensors
     in place; the returned cache holds them and ``len + 1``."""
-    x = _embed(params, tokens)[:, None, :]                  # (B, 1, d)
+    x = shard(_embed(params, tokens)[:, None, :],          # (B, 1, d)
+              ("batch", None, "embed"))
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+        lp = _gather_fsdp(layer_params(params["layers"], i))
         h = layers.rmsnorm(x, lp["ln1"])
         a, _, _ = layers.attention_decode(
             lp["attn"], h, cfg.attn_cfg(), cache["k"][i], cache["v"][i],

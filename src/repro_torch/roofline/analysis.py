@@ -5,13 +5,15 @@
     collective = collective_bytes_per_device / NVLink bandwidth
 
 Port of :mod:`repro.roofline.analysis` for the card. The counts come from
-:mod:`repro_torch.launch.dryrun` (``FlopCounterMode`` and a byte-counting
-dispatch mode over the step on the ``"meta"`` device), not from HLO:
-the reference's ``from_compiled`` and ``collective_bytes`` parse XLA's
-HLO text, which the port never produces, and have no counterpart. The
-collective term is counted only where a cell says so: on one process
-``coll_bytes_per_chip`` is ``None`` and :attr:`Roofline.bottleneck` and
-:attr:`Roofline.t_bound` take the terms that exist.
+:mod:`repro_torch.launch.dryrun`, which runs each cell's step sharded on
+DTensors and counts one device's operators on its local shards: FLOPs,
+bytes, and each collective's result bytes by the reference's kinds. The
+reference's ``from_compiled`` and ``collective_bytes`` parse XLA's HLO
+text, which the port never produces, and have no counterpart. Whenever
+``coll_bytes_per_chip`` is a number, :attr:`Roofline.t_collective`,
+:attr:`Roofline.bottleneck` and :attr:`Roofline.t_bound` take all three
+terms; a record that counted no collective (``None``: the gene-search
+cell, counted from its shapes) takes the two that exist.
 
 Hardware constants: one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates): 989 TFLOP/s bf16, 3.35 TB/s HBM3, and NVLink 4 at 900 GB/s a
@@ -111,8 +113,10 @@ class Roofline:
 def memory_stats(pairs: Iterable) -> dict:
     """``argument_size_in_bytes``: one device's bytes of the step's
     arguments, from ``(leaf, NamedSharding)`` pairs (each leaf's local
-    shard). The reference's other keys come from XLA's buffer assignment
-    and have no counterpart."""
+    shard). The dry run adds ``output_size_in_bytes`` and
+    ``temp_size_in_bytes`` from the sharded step's own allocations; the
+    reference's code-size and alias keys come from XLA's buffer
+    assignment and have no counterpart."""
     total = 0
     for leaf, sharding in pairs:
         n = 1

@@ -29,6 +29,7 @@ import zipfile
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 
 def _flatten_with_paths(tree) -> dict:
@@ -193,10 +194,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None, device=None):
+    def restore(self, tree_like, step: int | None = None, device=None,
+                sharding_fn=None):
         """Restore into the structure of ``tree_like``: each leaf takes its
         ``tree_like`` leaf's dtype, on ``device`` (default: that leaf's
-        device). Returns (tree, manifest)."""
+        device). ``sharding_fn(path) -> (mesh, placements) | None`` places
+        a leaf on a target mesh instead (the reference's ``sharding_fn``;
+        ``path`` is the leaf's checkpoint key): it comes back as a DTensor
+        of those placements whose local shard this process slices from the
+        saved leaf, with nothing communicated. Returns (tree,
+        manifest)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -215,5 +222,12 @@ class CheckpointManager:
                     raise ValueError(
                         f"{key}: checkpoint shape {arr.shape} != model "
                         f"{tuple(like.shape)}")
-                restored[key] = from_host(arr, like, device)
+                target = sharding_fn(key) if sharding_fn else None
+                if target is None:
+                    restored[key] = from_host(arr, like, device)
+                    continue
+                mesh, placements = target
+                restored[key] = distribute_tensor(
+                    from_host(arr, like, mesh.device_type), mesh,
+                    list(placements), src_data_rank=None)
         return _rebuild(tree_like, restored), manifest

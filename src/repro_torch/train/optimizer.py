@@ -12,6 +12,9 @@ arrays, ``update`` writes the moments into ``state``'s own tensors and
 :func:`apply_updates` adds into the parameters in place (no donation in
 PyTorch; the bits are the reference's arithmetic). A tree is a nested
 dict whose leaves are tensors; ``None`` is an empty subtree, as in JAX.
+The leaves may be DTensors (a sharded step): every update is an
+elementwise or reducing operator that DTensor runs on the local shards,
+and each in-place write keeps its tensor's placements.
 """
 
 from __future__ import annotations
@@ -78,8 +81,8 @@ def adamw(
     eps: float = 1e-8, weight_decay: float = 0.1,
 ) -> Optimizer:
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):       # a DTensor's moments take its placements
+            return torch.zeros_like(p, dtype=torch.float32)
         step_dev = tree_leaves(params)[0].device
         return {
             "mu": tree_map(zeros, params),

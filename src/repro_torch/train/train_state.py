@@ -6,6 +6,13 @@ Port of :mod:`repro.train.train_state`. Gradients come from
 (the optimizer's moments and the parameters) and returns the same
 :class:`TrainState` object advanced by one: PyTorch has no donation, and
 an in-place update is what donation buys the reference.
+
+On DTensor state (a sharded step), a parameter's gradient comes out of
+autograd in whatever layout its last use left: a parameter replicated
+over a data-parallel axis gets a ``Partial`` sum. :func:`value_and_grad`
+lays each gradient out as its parameter is laid out, once (an all-reduce,
+or a reduce-scatter onto an FSDP shard), before the clip and the
+optimizer read it.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train import optimizer as opt_mod
 
@@ -46,10 +54,18 @@ def value_and_grad(loss_fn: Callable, params, batch):
     with torch.enable_grad():
         loss, metrics = loss_fn(aliases, batch)
         grads = torch.autograd.grad(loss, leaves)
-    by_leaf = {id(x): g for x, g in zip(leaves, grads)}
+    by_leaf = {id(x): _as_param(g, x) for x, g in zip(leaves, grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics,
             opt_mod.tree_map(lambda x: by_leaf[id(x)], aliases))
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter (its pending
+    reductions done once); any other gradient as it is."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(
@@ -68,8 +84,8 @@ def make_train_step(
     def train_step(state: TrainState, batch):
         if microbatch and microbatch > 1:
             acc = opt_mod.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), state.params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32),
+                state.params)
             losses, metricses = [], []
             for i in range(microbatch):
                 mbatch = {k: v.reshape((microbatch, v.shape[0] // microbatch)

@@ -848,3 +848,73 @@ def test_equiformer_card_vs_cpu(cuda, no_tf32, task):
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     _card_vs_cpu(lambda p, b: eq.equiformer_loss(p, b, cfg), params, batch,
                  cuda)
+
+
+def test_sharded_sasrec_step_on_a_one_card_mesh(cuda, no_tf32):
+    """SASRec's smoke config on a one-process NCCL group and
+    ``make_host_mesh()``: its ``serve_p99`` scores and two AdamW train
+    steps run on DTensor state under the cell's rules equal the plain
+    steps on the card (scores rtol 1e-5, atol 1e-6; losses rtol 1e-5,
+    parameters within 1e-5: one card, the same kernels)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.data import recsys_pipeline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import recsys
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_state as ts
+
+    spec = configs.get("sasrec")
+    cfg = spec.make_smoke_config()
+    gen = recsys_pipeline.SessionGenerator(recsys_pipeline.RecsysSynthConfig(
+        n_items=cfg.n_items, session_len=cfg.seq_len, seed=3))
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in gen.sasrec_batch(8).items()}
+    serve_batch = {"seq": batch["seq"], "cands": batch["neg"][:, :10]}
+    serve_cell = spec.shapes["serve_p99"]
+    train_cell = dataclasses.replace(spec.shapes["train_batch"],
+                                     meta={"batch": 8})
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        params = recsys.sasrec_init(0, cfg, device=cuda)
+        want = spec.step_fn(cfg, serve_cell)(params, serve_batch)
+        p, b = base.distribute_cell(spec, cfg, mesh, params, serve_batch)
+        with sh.sharded_step(base.cell_rules(spec, serve_cell, mesh)):
+            got = whole(spec.step_fn(cfg, serve_cell)(p, b))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+        step = spec.step_fn(cfg, train_cell)
+        runs = []
+        for sharded in (False, True):
+            state = ts.TrainState.create(
+                recsys.sasrec_init(0, cfg, device=cuda), opt.adamw(1e-3))
+            b = batch
+            if sharded:
+                state, b = base.distribute_cell(spec, cfg, mesh, state, batch)
+            losses = []
+            for _ in range(2):
+                if sharded:
+                    with sh.sharded_step(base.cell_rules(spec, train_cell,
+                                                         mesh)):
+                        state, m = step(state, b)
+                else:
+                    state, m = step(state, b)
+                losses.append(float(whole(m["loss"])))
+            runs.append((losses, [whole(x) for x in
+                                  opt.tree_leaves(state.params)]))
+        (lp, pp), (ls, ps) = runs
+        np.testing.assert_allclose(ls, lp, rtol=1e-5, atol=0)
+        assert max(float((a - b).abs().max()) for a, b in zip(pp, ps)) <= 1e-5
+    finally:
+        dist.destroy_process_group()
