@@ -36,11 +36,18 @@ reference package) and runs these phases, printing one line each:
    batch (a (2^20, 320) matrix), at η 1/3/4, on a misaligned view and an
    empty batch, ``probe_planned_bits`` at the same shape (what the bit mode
    replaces there), both bit kernels across row widths, and
-   ``gather_planned_rows`` at a COBS group's W = 16. Each main-shape kernel
-   is timed with CUDA events and by CUDA-graph replay (the probe kernels
-   and the gathers' library call also with the L2 flushed before each
-   call) beside its plain version, its byte bound and, where one exists,
-   a library call (timed both ways too);
+   ``gather_planned_rows`` at a COBS group's W = 16; 2g the fused location
+   kernels ``idl_locations32`` (at the bit-sliced path's configuration) and
+   ``idl_locations64`` (at the flat filter's) at (256, 230) and (512, 230)
+   read batches, ``idl`` DOPH and exact with align on and off and ``rh``,
+   and over one 4.6 Mbase genome row (64-bit), the plain version's kernel
+   count under ``torch.profiler`` beside the fused kernel's one. Each
+   main-shape kernel is timed with CUDA events and by CUDA-graph replay
+   (the probe kernels and the gathers' library call also with the L2
+   flushed before each call) beside its plain version, its bound (bytes,
+   or for the location kernels the larger of bytes and integer
+   operations) and, where one exists, a library call (timed both ways
+   too);
 3. the bit-sliced main path at full width (``full_config``: m = 2^26 rows,
    1024 files, k 31, t 16, L 2^17, η 4): an 8 GiB ``BitSlicedIndex`` built
    through ``build_archive(backend="idl_insert")`` (no numpy run planner
@@ -48,7 +55,10 @@ reference package) and runs these phases, printing one line each:
    "idl_probe")`` in 256-read batches (no numpy probe planner call
    allowed; one ``gather_planned_rows`` launch per batch); recall must be
    total, the first batch must match the plain ``"torch"`` backend, and
-   ``window_min`` must launch once per MinHash; then the mean host time of
+   ``idl_locations32`` must launch once per ``locations`` stage and
+   ``window_min`` never (the same holds for ``idl_locations64`` on the
+   64-bit paths of phases 4-6 and 7c, 9b, and for the fused kernel of
+   each tier); then the mean host time of
    each planner stage (insert and query alike: ``locations``,
    ``device_plan``, ``launch``) and the peak device memory of ingest and
    of serving;
@@ -62,8 +72,8 @@ reference package) and runs these phases, printing one line each:
    ``probe_planned_bits`` launch per query and no ``gather_planned_rows``
    launch), ``probe_membership`` on the reference's run plan and on the
    compact plan (both equal to ``query_batch``) and one batch through
-   ``GeneSearchService``, plus poisoned reads counted; ``window_min`` once
-   per MinHash;
+   ``GeneSearchService``, plus poisoned reads counted; ``idl_locations64``
+   once per locations stage and direct call;
 5. COBS over an archive of 1024 genomes with lengths log-uniform in
    [4,096, 262,144] bases (``CobsIndex.build(kmer counts, full_config's
    IDLConfig, "idl", bits_per_kmer=10, n_groups=2)``: two size groups at W
@@ -74,7 +84,8 @@ reference package) and runs these phases, printing one line each:
    query), 256 random reads, and 256 overlapping reads through ``msmt``
    with and without dedup (equal); 5b minimizer ingest (``window_min=16``)
    of 64 files into a fresh COBS index (equal to the plain backend, a
-   subset of a full build, three ``window_min`` launches per insert);
+   subset of a full build; per insert one ``idl_locations64`` and two
+   ``window_min`` launches, the mask's sliding minima);
 6. RAMBO over the same archive (``RamboIndex.build(1024, m = 2^25 bits a
    bucket)``: B 32, R 10, (320, 2^20) int32 words), its last file held out
    of the build and inserted after a query that must miss it (a query
@@ -193,7 +204,7 @@ reference package) and runs these phases, printing one line each:
    ``t_bound`` beside the measured medians, failing a median more than 5%
    under ``t_compute``.
 
-The phases run in the order 1, 2a-2f, 3, 7a, 7b, 9a (it needs phase 3's
+The phases run in the order 1, 2a-2g, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
 6, 7c, 9b, 10 (after 9b has freed the card), 11, 12, 13, 14. Before
 phase 2 it profiles one tiny operation, so ``torch.profiler``'s lazy
@@ -644,12 +655,15 @@ def main_shapes_phase(cfg, archive, dev) -> list:
 def _counters():
     """(name, module, attribute) of every kernel's launch counter."""
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
+    from repro_torch.kernels.idl_locations import kernel as loc_kernel
     from repro_torch.kernels.idl_probe import kernel as probe_kernel
     from repro_torch.kernels.window_min import kernel as wm_kernel
 
     return [(probe_kernel.NAME, probe_kernel, "launches"),
             (ins_kernel.NAME, ins_kernel, "launches"),
             (wm_kernel.NAME, wm_kernel, "launches"),
+            (loc_kernel.NAME32, loc_kernel, "launches32"),
+            (loc_kernel.NAME64, loc_kernel, "launches64"),
             (probe_kernel.BITS_NAME, probe_kernel, "bits_launches"),
             (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches"),
             (probe_kernel.BIT_MODE_NAME, probe_kernel, "bit_mode_launches")]
@@ -683,16 +697,19 @@ def counting_calls(module, name: str):
         setattr(module, name, fn)
 
 
-def check_window_min_launches(launches: dict, stages: dict, extra: int,
-                              path: str) -> int:
-    """``window_min`` must launch once per MinHash: once for each timed
-    ``locations`` stage (insert and query batches) and each of the path's
-    ``extra`` direct location calls. Returns that count."""
+def check_location_launches(launches: dict, stages: dict, extra: int,
+                            path: str, kernel: str) -> int:
+    """The fused location kernel ``kernel`` (``idl_locations32`` or
+    ``idl_locations64``) must launch once for each timed ``locations``
+    stage (insert and query batches) and each of the path's ``extra``
+    direct location calls, and ``window_min`` never: the rolling MinHash
+    runs inside the fused kernel. Returns that count."""
     want = (stages["insert.locations"]["batches"]
             + stages["query.locations"]["batches"] + extra)
-    check(launches["window_min"] == want,
-          f"window_min launched {launches['window_min']} times on the "
-          f"{path}, once per MinHash ({want})")
+    check(launches[kernel] == want and launches["window_min"] == 0,
+          f"{kernel} launched {launches[kernel]} times on the {path}, once "
+          f"per locations stage ({want}); window_min "
+          f"{launches['window_min']} times (0)")
     return want
 
 
@@ -774,7 +791,7 @@ def main_path_phase(cfg, archive, dev) -> tuple:
                   "idl_probe verdicts == torch verdicts on the first batch")
     serve_peak = torch.cuda.max_memory_allocated()
     launches = read_launches()
-    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+    for name in ("gather_planned_rows", "insert_planned", "idl_locations32"):
         check(launches[name] > 0, f"{name} launched on the bit-sliced path")
     check(launches["gather_planned_rows"] == SERVE_BATCHES
           and launches["probe_planned_bits"] == 0
@@ -784,8 +801,8 @@ def main_path_phase(cfg, archive, dev) -> tuple:
     check(correct == total, f"recall {correct}/{total} is total")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
-    minhashes = check_window_min_launches(launches, stages, 0,
-                                          "bit-sliced path")
+    fused = check_location_launches(launches, stages, 0, "bit-sliced path",
+                                    "idl_locations32")
     tile_q = obs_metrics.counter_total(
         snap, "locality.planned_tile_bytes", {"op": "query"})
     tile_i = obs_metrics.counter_total(
@@ -796,7 +813,8 @@ def main_path_phase(cfg, archive, dev) -> tuple:
           f"({eng.state.nbytes} B) over {cfg.n_files} files x {GENOME_LEN} "
           f"bases; ingest {ingest_s:.3f} s (numpy run planner calls "
           f"{planner[0]}; {runs_i:.0f} planner runs counted from the compact "
-          f"plans); window_min once per MinHash ({minhashes}); serve "
+          f"plans); idl_locations32 once per locations stage ({fused}), "
+          f"window_min never; serve "
           f"{SERVE_BATCHES} x "
           f"{SERVE_BATCH} reads, batch ms {[round(b, 3) for b in batch_ms]} "
           f"(numpy probe planner calls 0, one gather launch per batch); "
@@ -938,6 +956,165 @@ def window_min_phase(dev) -> dict:
     return {"name": wm_kernel.NAME, "route": "cuda",
             "source": wm_kernel.SOURCE, "replaces": wm_kernel.REPLACES,
             **timed[SERVE_BATCH]}
+
+
+# The H100's peak rate of 32-bit integer instructions: its non-tensor
+# float32 peak, 67 TFLOP/s counting an FMA as two operations, is 132 SMs x
+# 128 lanes x 1.98 GHz of issue, which integer instructions share (IMAD on
+# the FMA pipe, the rest on the integer pipe)
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+LOC_VARIANTS = {"idl doph align": ("idl", "doph", True),
+                "idl doph": ("idl", "doph", False),
+                "idl exact align": ("idl", "exact", True),
+                "idl exact": ("idl", "exact", False),
+                "rh": ("rh", "doph", True)}
+
+
+def location_ops(cfg, scheme: str, lane32: bool, rows: int, n: int) -> int:
+    """The integer operations the location function needs for ``(rows, n)``
+    codes, counted by need and not from the kernel's code, in 32-bit
+    instruction units (a 64-bit multiply 4; a 64-bit add, shift, xor or
+    compare 2): each sub-kmer packed once from the last (a shift and an or)
+    and hashed once (η hashes in exact mode, with its DOPH bin otherwise);
+    in each kmer's window one compare-and-select a sub-kmer, into its own
+    bin (DOPH; three operations with the bin's test) or into each of the η
+    minima (exact); the kmer built from its sub-kmers (a shift and an or);
+    DOPH's η - 1 densifying rotations over η bins; the η location hashes.
+    The count does not depend on the codes: every DOPH kmer densifies."""
+    eta, w = cfg.eta, cfg.w
+    n_sub, n_k = rows * (n - cfg.t + 1), rows * (n - cfg.k + 1)
+    if lane32:
+        pack, hash_sub, bin_ops, cmp_sel = 2, 10, 3, 2
+        # hash_pair32 26 + range 7 + sums 3; anchor mix 9 + range 7 + scale 1
+        loc_j, anchor_j = 36, 17
+    else:
+        pack, hash_sub, bin_ops, cmp_sel = 4, 28, 8, 4
+        # range64: hash64 28 + shift, multiply, shift 8; sums and mask 6
+        loc_j, anchor_j = 42, 40
+    per_kmer = pack + eta * loc_j
+    per_sub = 0
+    if scheme == "idl":
+        per_kmer += eta * anchor_j
+        if cfg.minhash_mode == "exact":
+            per_sub = pack + eta * (hash_sub + 2)
+            per_kmer += (w - 1) * eta * cmp_sel
+        else:
+            per_sub = pack + hash_sub + bin_ops
+            per_kmer += w * (cmp_sel + 1) + (eta - 1) * eta * 2 * cmp_sel
+    return n_sub * per_sub + n_k * per_kmer
+
+
+def plain_kernel_launches(fn) -> int:
+    """Kernels the device ran for one call of ``fn`` under
+    ``torch.profiler`` (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def time_locations(cfg, codes, scheme: str, lane32: bool, got,
+                   graph_calls: int = 20) -> dict:
+    """One fused location kernel at ``codes``: CUDA-event and CUDA-graph ms,
+    the plain version's ms and kernel count, and the bound (the larger of
+    the bytes, codes read once and the locations ``got`` written once, over
+    3.35 TB/s, and :func:`location_ops`, the operations the function
+    needs, over the card's int32 rate)."""
+    from repro_torch.kernels.idl_locations import kernel as loc_kernel
+
+    plain = loc_kernel._PLAIN[(scheme, lane32)]
+
+    def fused():
+        return loc_kernel.locations(cfg, codes, scheme, lane32=lane32)
+
+    def eager():
+        return plain(cfg, codes)
+
+    t_bytes = 1e3 * (codes.numel() + got.numel() * 8) / HBM_BYTES_PER_S
+    ops = location_ops(cfg, scheme, lane32, codes.numel() // codes.shape[-1],
+                       codes.shape[-1])
+    t_ops = 1e3 * ops / INT32_OPS_PER_S
+    return {"ms": cuda_ms(fused, 200 if codes.dim() > 1 else 20),
+            "graph_ms": graph_ms(fused, calls=graph_calls),
+            "plain_ms": cuda_ms(eager, 20 if codes.dim() > 1 else 3),
+            "plain_launches": plain_kernel_launches(eager),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "int_ops": ops,
+            "library_ms": None}
+
+
+def locations_phase(cfg32, cfg64, dev) -> list:
+    """Phase 2g: the fused location kernels against their plain versions
+    (the eager composition, with ``window_min``'s plain version), bit for
+    bit: ``idl_locations32`` at ``cfg32`` (the bit-sliced path's) and
+    ``idl_locations64`` at ``cfg64`` (the flat filter's), at (256, 230) and
+    (512, 230) read batches, ``idl`` DOPH and exact with align on and off
+    and ``rh``, and one 4.6 Mbase genome row on the 64-bit kernel; each
+    shape timed in the main variant (``idl`` DOPH, aligned) by
+    :func:`time_locations`, whose plain-version kernel count stands against
+    the fused kernel's one launch. Returns the two kernels' JSON records at
+    (256, 230)."""
+    import dataclasses
+
+    from repro_torch.kernels.idl_locations import kernel as loc_kernel
+
+    rng = np.random.default_rng(23)
+    cases, timed = 0, {}
+    for lane32, base in ((True, cfg32), (False, cfg64)):
+        name = loc_kernel.NAME32 if lane32 else loc_kernel.NAME64
+        for rows in (SERVE_BATCH, INSERT_BATCH):
+            codes = torch.as_tensor(rng.integers(0, 4, size=(
+                rows, FLAT_READ_LEN), dtype=np.uint8), device=dev)
+            for variant, (scheme, mode, align) in LOC_VARIANTS.items():
+                cfg = dataclasses.replace(base, minhash_mode=mode, align=align)
+                got = loc_kernel.locations(cfg, codes, scheme, lane32=lane32)
+                err = max_abs_err(got, loc_kernel._PLAIN[(scheme, lane32)](
+                    cfg, codes))
+                check(err == 0, f"{name} {variant} at ({rows}, "
+                      f"{FLAT_READ_LEN}) == plain (max abs err {err})")
+                cases += 1
+                if variant == "idl doph align":
+                    timed[f"{name} ({rows}, {FLAT_READ_LEN})"] = {
+                        "max_abs_err": err,
+                        **time_locations(cfg, codes, scheme, lane32, got)}
+    # one genome row, as phase 4's legacy path hashes it
+    g = torch.as_tensor(rng.integers(0, 4, size=FLAT_GENOME_LEN,
+                                     dtype=np.uint8), device=dev)
+    got = loc_kernel.locations(cfg64, g, "idl", lane32=False)
+    err = max_abs_err(got, loc_kernel._PLAIN[("idl", False)](cfg64, g))
+    check(err == 0, f"idl_locations64 over a {FLAT_GENOME_LEN}-base row == "
+          f"plain (max abs err {err})")
+    timed[f"{loc_kernel.NAME64} ({FLAT_GENOME_LEN},)"] = {
+        "max_abs_err": err,
+        **time_locations(cfg64, g, "idl", False, got, graph_calls=4)}
+    cases += 1
+    del g, got
+    print(f"phase 2g idl_locations: ok (kernel == plain, tolerance 0: "
+          f"bit-exact) — {cases} cases: both widths at ({SERVE_BATCH}, "
+          f"{FLAT_READ_LEN}) and ({INSERT_BATCH}, {FLAT_READ_LEN}) x "
+          f"{list(LOC_VARIANTS)} (32-bit at m {cfg32.m}, L {cfg32.L}; 64-bit "
+          f"at m {cfg64.m}, L {cfg64.L}; k {cfg32.k}, t {cfg32.t}, η "
+          f"{cfg32.eta}) and a {FLAT_GENOME_LEN}-base row on the 64-bit "
+          f"kernel; one launch each against the plain version's kernels "
+          f"under torch.profiler; timed, idl doph align: "
+          + json.dumps(timed))
+    records = []
+    for name in (loc_kernel.NAME32, loc_kernel.NAME64):
+        rec = dict(timed[f"{name} ({SERVE_BATCH}, {FLAT_READ_LEN})"])
+        GRAPH_MS[name] = rec.pop("graph_ms")
+        for key in ("plain_launches", "bytes_ms", "ops_ms", "int_ops"):
+            rec.pop(key)
+        records.append({"name": name, "route": "cuda",
+                        "source": loc_kernel.SOURCE,
+                        "replaces": loc_kernel.REPLACES, **rec})
+    return records
 
 
 def flat_config():
@@ -1188,7 +1365,8 @@ def flat_path_phase(cfg, g, dev) -> dict:
                           .view(per_kmer.shape), per_kmer),
           "probe_membership of the reference's run plan == query_batch")
     for name, count in launches.items():
-        if name not in ("gather_planned_rows", "gather_planned_bits"):
+        if name not in ("gather_planned_rows", "gather_planned_bits",
+                        "window_min", "idl_locations32"):
             check(count > 0, f"{name} launched on the flat-filter path")
     check(launches["probe_planned_bits"] == queries
           and launches["gather_planned_rows"] == 0
@@ -1198,8 +1376,8 @@ def flat_path_phase(cfg, g, dev) -> dict:
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, batch_ms)
     # direct location calls: the legacy path's and each batch's probe plan
-    minhashes = check_window_min_launches(launches, stages,
-                                          1 + SERVE_BATCHES, "flat path")
+    fused = check_location_launches(launches, stages, 1 + SERVE_BATCHES,
+                                    "flat path", "idl_locations64")
     runs = {op: (obs_metrics.counter_total(snap, "locality.probe_runs",
                                            {"op": op}),
                  obs_metrics.counter_total(snap, "locality.probes",
@@ -1209,7 +1387,8 @@ def flat_path_phase(cfg, g, dev) -> dict:
           f"({eng.state.nbytes} B), L {cfg.L}, η {cfg.eta}, k {cfg.k}, t "
           f"{cfg.t}; genome {len(g)} bases (uncut); ingest {ingest_s:.3f} s "
           f"in batches of {INSERT_BATCH} reads (numpy run planner calls "
-          f"{planner[0]}); window_min once per MinHash ({minhashes}); legacy "
+          f"{planner[0]}); idl_locations64 once per locations stage and "
+          f"direct call ({fused}), window_min never; legacy "
           f"path: locations {legacy_s[0]:.3f} s, plan_insert_rounds "
           f"{legacy_s[1]:.3f} s ({len(plan.rounds)} rounds, {plan.n_tiles} "
           f"runs, {plan.n_locs} locations), insert_with_plan "
@@ -1495,7 +1674,7 @@ def serve_checks(eng, archive, cfg, per_query: int) -> dict:
             "probe_launches": per_query * queries,
             "dedup_kmers": (len(uniq), b * n_k),
             # dedup's locality sort hashes the distinct kmers once more
-            "extra_minhashes": per_query}
+            "extra_locations": per_query}
 
 
 def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
@@ -1553,13 +1732,13 @@ def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
     check(launches[probe] == want and all(launches[n] == 0 for n in others),
           f"{probe} launched {launches[probe]} times, {per_query} per query "
           f"({want}); {', '.join(others)} never")
-    for name in (probe, "insert_planned", "window_min"):
+    for name in (probe, "insert_planned", "idl_locations64"):
         check(launches[name] > 0, f"{name} launched on the {label} path")
     snap = obs_metrics.DEFAULT.snapshot()
     stages = stage_means(snap, ingest_s, served["batch_ms"])
-    minhashes = check_window_min_launches(launches, stages,
-                                          served["extra_minhashes"],
-                                          f"{label} path")
+    fused = check_location_launches(launches, stages,
+                                    served["extra_locations"],
+                                    f"{label} path", "idl_locations64")
     tile_q = obs_metrics.counter_total(
         snap, "locality.planned_tile_bytes", {"op": "query"})
     runs = {op: (obs_metrics.counter_total(snap, "locality.probe_runs",
@@ -1573,8 +1752,9 @@ def engine_path_phase(label: str, eng, archive, cfg, *, probe: str,
           f"{len(archive)} files ({sum(len(c) for _, c in archive)} bases); "
           f"ingest {ingest_s:.3f} s in batches of {INSERT_BATCH} reads "
           f"({stages['insert.launch']['batches']} planned inserts; numpy "
-          f"run planner calls 0); {held_line}window_min once per MinHash "
-          f"({minhashes}); serve {SERVE_BATCHES} x {SERVE_BATCH} reads, "
+          f"run planner calls 0); {held_line}idl_locations64 once per "
+          f"locations stage ({fused}), window_min never; serve "
+          f"{SERVE_BATCHES} x {SERVE_BATCH} reads, "
           f"batch ms {[round(x, 3) for x in served['batch_ms']]} (numpy "
           f"probe planner calls 0); recall {served['correct']}/"
           f"{served['total']}; mean extra matched files "
@@ -1611,9 +1791,9 @@ def minimizer_phase(cfg, archive, dev) -> dict:
     """Phase 5b: minimizer ingest (``window_min=16``) of the archive's first
     64 files into a fresh COBS index: its words equal the plain
     ``"torch"`` backend's (not counted) and are a subset of a full build's,
-    with fewer bits; ``window_min`` launches three times per planned insert
-    (the MinHash and the mask's two sliding minima). Returns the launch
-    counts."""
+    with fewer bits; per planned insert ``idl_locations64`` launches once
+    (the locations, MinHash included) and ``window_min`` twice (the mask's
+    two sliding minima). Returns the launch counts."""
     from repro_torch.index import CobsIndex, build_archive
     from repro_torch.index.engines import popcount32
     from repro_torch.obs import metrics as obs_metrics
@@ -1653,13 +1833,16 @@ def minimizer_phase(cfg, archive, dev) -> dict:
               zip(mini.state.words, full.state.words))
           and 0 < set_bits[0] < set_bits[1],
           "minimizer build is a strict subset of the full build")
-    check(launches["window_min"] == 3 * n_inserts
+    check(launches["window_min"] == 2 * n_inserts
+          and launches["idl_locations64"] == n_inserts
           and launches["insert_planned"] == n_inserts,
-          f"window_min launched three times per minimizer insert "
-          f"({launches['window_min']} for {n_inserts})")
+          f"window_min launched twice and idl_locations64 once per minimizer "
+          f"insert ({launches['window_min']} and "
+          f"{launches['idl_locations64']} for {n_inserts})")
     print(f"phase 5b minimizer ingest: ok — {len(files)} files into a fresh "
           f"COBS index with window_min=16 ({n_inserts} planned inserts, "
-          f"window_min {launches['window_min']} launches, three per insert); "
+          f"window_min {launches['window_min']} launches, two per insert, "
+          f"idl_locations64 {launches['idl_locations64']}, one per insert); "
           f"words == the torch backend's; set bits {set_bits[0]} of a full "
           f"build's {set_bits[1]} ({set_bits[0] / set_bits[1]:.4f}), a "
           f"subset")
@@ -1962,8 +2145,9 @@ def tier_phase(cfg, archive, full_eng, dev) -> tuple:
     finally:
         rt.close()
     launches = read_launches()
-    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+    for name in ("gather_planned_rows", "insert_planned", "idl_locations32"):
         check(launches[name] > 0, f"{name} launched on the tier path")
+    check(launches["window_min"] == 0, "no window_min on the tier path")
     check(launches["probe_planned_bits"] == launches["gather_planned_bits"]
           == 0, "no bit probe on the bit-sliced tier")
     n_base = cfg.n_files - HELD_OUT
@@ -2117,8 +2301,9 @@ def live_phase(cfg, archive, base, full_eng, dev) -> dict:
     launches = read_launches()
     check(launches["insert_planned"] == 2 * n_writes,
           "insert_planned launched once per write batch and replica")
-    for name in ("gather_planned_rows", "window_min"):
+    for name in ("gather_planned_rows", "idl_locations32"):
         check(launches[name] > 0, f"{name} launched on the live path")
+    check(launches["window_min"] == 0, "no window_min on the live path")
     n_answers = sum(len(res) for _, res in rounds)
     print(f"phase 7b live index: ok — LiveReplicaRouter, 2 replicas over "
           f"7a's base; {sum(len(r) for r, _ in writes)} reads of "
@@ -2182,8 +2367,10 @@ def rambo_cache_phase(cfg, archive, eng) -> dict:
             / (st1["lookups"] - st0["lookups"]),
             "stages_ms_per_batch": stages}
     launches = read_launches()
-    check(launches["gather_planned_bits"] > 0 and launches["window_min"] > 0,
-          "gather_planned_bits and window_min launched for the misses")
+    check(launches["gather_planned_bits"] > 0
+          and launches["idl_locations64"] > 0 and launches["window_min"] == 0,
+          "gather_planned_bits and idl_locations64 launched for the misses, "
+          "window_min never")
     check(launches["gather_planned_rows"] == launches["probe_planned_bits"]
           == 0, "RAMBO misses probe through the bit mode only")
     print(f"phase 7c RAMBO with the cache: ok — two passes of "
@@ -2353,11 +2540,13 @@ def shards_phase(cfg, archive, full_eng, dev) -> dict:
                         want[:SERVE_BATCH]),
           "the sharded backend on the one-card mesh == idl_probe")
     launches = add_launches(read_launches(), shard_launches)
-    for name in ("gather_planned_rows", "insert_planned", "window_min"):
+    for name in ("gather_planned_rows", "insert_planned", "idl_locations32"):
         check(launches[name] > 0, f"{name} launched on the sharded path")
     check(shard_launches["gather_planned_rows"] > 0
-          and shard_launches["window_min"] > 0,
-          "every shard process launched the gather and window_min")
+          and shard_launches["idl_locations32"] > 0
+          and launches["window_min"] == 0,
+          "every shard process launched the gather and idl_locations32, "
+          "window_min never")
     print(f"phase 9a sharded archives: ok — build_sharded_archive into "
           f"{SHARDS} file shards ((m, {spec.bounds[1]}) int32 each, one "
           f"thread a shard) in "
@@ -2613,8 +2802,11 @@ def fabric_gateway(work: str) -> None:
     launches: dict = {}
     for s in seen.values():
         add_launches(launches, s["device"]["launches"])
-    check(launches["window_min"] > 0 and launches["gather_planned_rows"] > 0,
-          "the workers launched window_min and gather_planned_rows")
+    check(launches["idl_locations32"] > 0
+          and launches["gather_planned_rows"] > 0
+          and launches["window_min"] == 0,
+          "the workers launched idl_locations32 and gather_planned_rows, "
+          "window_min never")
     check(launches["insert_planned"] == FABRIC_WORKERS * n_writes,
           "insert_planned launched once per write batch and worker")
     workers = {wid: {
@@ -2725,8 +2917,11 @@ def rambo_shards_phase(cfg, archive, eng) -> dict:
     finally:
         remove_dir(work)
     launches = add_launches(read_launches(), shard_launches)
-    check(launches["window_min"] > 0 and shard_launches["window_min"] > 0,
-          "window_min launched by the word shards' hashing")
+    check(launches["idl_locations64"] > 0
+          and shard_launches["idl_locations64"] > 0
+          and launches["window_min"] == 0,
+          "idl_locations64 launched by the word shards' hashing, window_min "
+          "never")
     check(launches["gather_planned_bits"] == launches["gather_planned_rows"]
           == 0, "the word shards' partials are plain gathers")
     print(f"phase 9b sharded RAMBO: ok — {RAMBO_SHARDS} word shards of "
@@ -4461,6 +4656,7 @@ def main() -> None:
     kernels = main_shapes_phase(cfg, archive, dev)
     kernels.append(window_min_phase(dev))
     fcfg = flat_config()
+    kernels += locations_phase(cfg.idl_config(), fcfg, dev)
     g = genome.synthesize_genome(FLAT_GENOME_LEN, seed=0)
     kernels += flat_kernels_phase(fcfg, g, dev)
     engine_archive = log_uniform_archive(cfg.n_files, ARCHIVE_SEED)

@@ -21,8 +21,9 @@ Integer conventions (torch on the CPU has no ``>>`` for unsigned types):
   as the reference's ``uint32`` words (compare with ``.view(np.uint32)``).
 
 The kernels (``gather_planned_rows``, ``insert_planned``, ``window_min``,
-``probe_planned_bits``) are hand-written CUDA C++ (``csrc/``), built with
-``nvcc`` at first use and bound with ``ctypes``
+``probe_planned_bits``, and ``idl_locations32`` / ``idl_locations64``,
+which turn codes into locations in one launch) are hand-written CUDA C++
+(``csrc/``), built with ``nvcc`` at first use and bound with ``ctypes``
 (:mod:`repro_torch.kernels.build`).
 """
 

@@ -10,7 +10,11 @@ path (``*_rolling32``) uses only 32-bit lane arithmetic.
 
 Codes may carry leading batch axes: ``(..., n)`` uint8 codes give
 ``(..., η, n - k + 1)`` int64 locations in ``[0, 2**32)`` (the reference's
-uint32 locations: at m = 2**32 they reach 2**32 - 1).
+uint32 locations: at m = 2**32 they reach 2**32 - 1). The rolling
+locations of the ``idl`` and ``rh`` schemes, on both paths, take ``(n,)``
+or ``(B, n)`` codes and run as one fused kernel launch on a CUDA tensor
+(:mod:`repro_torch.kernels.idl_locations`; its plain version on a CPU
+tensor); ``lsh``, ``idl-bbf`` and the kmer-batch form stay eager.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ import dataclasses
 import torch
 
 from repro_torch.core import hashing, kmers, minhash
-from repro_torch.kernels.window_min import ops as window_min_ops
 
 # seed salts (keep ρ₁, ρ₂ and MinHash streams independent)
 _SALT_ANCHOR = 0xA17C
@@ -82,8 +85,8 @@ def _minhash_rolling(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
     return minhash.doph_minhash(subk, cfg.w, cfg.eta, seed=_SALT_MH)
 
 
-def _combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
-             ) -> torch.Tensor:
+def combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
+            ) -> torch.Tensor:
     """ψ_j(x) = j·m' + ρ₁_j(mh_j(x)) + ρ₂_j(x): ``(..., η, n)`` int64.
 
     align=True: ρ₁ picks a block index in [m'/L], scaled by L, so the
@@ -104,12 +107,20 @@ def _combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
     return torch.stack(locs, dim=-2)
 
 
+def _fused(cfg: IDLConfig, codes: torch.Tensor, scheme: str, lane32: bool
+           ) -> torch.Tensor:
+    """The ``idl_locations`` kernels' entry point for ``scheme``."""
+    from repro_torch.kernels.idl_locations import ops  # local: it imports us
+
+    return ops.locations(cfg, codes, scheme, lane32=lane32)
+
+
 def idl_locations_rolling(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
-    """IDL bit locations for every stride-1 kmer of a code sequence (the
-    rolling MinHash as a sliding-window minimum): ``(..., η, n - k + 1)``."""
-    subk = kmers.pack_kmers(codes, cfg.t)
-    mh = _minhash_rolling(cfg, subk)
-    return _combine(cfg, mh, kmers.pack_kmers(codes, cfg.k))
+    """IDL bit locations for every stride-1 kmer of ``(n,)`` or ``(B, n)``
+    uint8 codes (the rolling MinHash as a sliding-window minimum):
+    ``(..., η, n - k + 1)``, in one ``idl_locations64`` launch on a CUDA
+    tensor."""
+    return _fused(cfg, codes, "idl", lane32=False)
 
 
 def idl_locations_kmer_batch(cfg: IDLConfig, kmer_arr: torch.Tensor
@@ -121,7 +132,7 @@ def idl_locations_kmer_batch(cfg: IDLConfig, kmer_arr: torch.Tensor
         mode=cfg.minhash_mode, seed=_SALT_MH,
         seeds=cfg.exact_seeds() if cfg.minhash_mode == "exact" else None,
     )
-    return _combine(cfg, mh, kmer_arr)
+    return combine(cfg, mh, kmer_arr)
 
 
 # the idl-bbf scheme's block: one 512-bit (64-byte) cache line
@@ -170,7 +181,9 @@ def rh_locations(cfg: IDLConfig, kmer_arr: torch.Tensor) -> torch.Tensor:
 
 
 def rh_locations_rolling(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
-    return rh_locations(cfg, kmers.pack_kmers(codes, cfg.k))
+    """:func:`rh_locations` of every stride-1 kmer of the codes, in one
+    ``idl_locations64`` launch on a CUDA tensor."""
+    return _fused(cfg, codes, "rh", lane32=False)
 
 
 def lsh_locations_rolling(cfg: IDLConfig, codes: torch.Tensor
@@ -194,58 +207,13 @@ def locations(cfg: IDLConfig, codes: torch.Tensor, scheme: str
     return registry.locations(cfg, codes, scheme)
 
 
-def _doph32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
-    """(..., η, n_kmers) densified one-permutation rolling MinHash."""
-    h = hashing.mix32((hashing.mul32(subk, 0x9E3779B9) + _SALT_MH) & _M32)
-    # each lane's DOPH bin, ((h >> 16) * η) >> 16, is derived in the kernel
-    empty = minhash.FILL32
-    mh = window_min_ops.window_min(h, cfg.w, n_bins=cfg.eta, bin_shift=16,
-                                   fill=empty)
-    # rotation densification: an empty bin borrows from the next non-empty
-    # bin, offset by a multiple of the golden constant
-    for off in range(1, cfg.eta):
-        donor = torch.roll(mh, -off, dims=-2)
-        mh = torch.where(
-            (mh == empty) & (donor != empty),
-            (donor + ((0x9E3779B9 * off) & _M32)) & _M32,
-            mh,
-        )
-    return mh
-
-
-def _exact32(cfg: IDLConfig, subk: torch.Tensor) -> torch.Tensor:
-    """(..., η, n_kmers) η independent rolling MinHashes."""
-    h = torch.stack([
-        hashing.mix32((hashing.mul32(subk, 2 * s + 1) + s) & _M32)
-        for s in cfg.exact_seeds()
-    ], dim=-2)
-    return window_min_ops.window_min(h, cfg.w)
-
-
 def idl_locations_rolling32(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
-    """(..., η, n_kmers) IDL locations using only 32-bit lane arithmetic."""
-    if cfg.t > 16:
-        raise ValueError("32-bit path needs t <= 16")
-    subk = kmers.pack_kmers_u32(codes, cfg.t)
-    mh = _doph32(cfg, subk) if cfg.minhash_mode == "doph" else _exact32(cfg, subk)
-    hi, lo = kmers.pack_kmers_pair32(codes, cfg.k)
-    locs = []
-    for j in range(cfg.eta):
-        mixed = hashing.mix32(hashing.mul32(mh[..., j, :], 2 * j + 3))
-        if cfg.align:
-            anchor = hashing.hash32_to_range(mixed, cfg.m_part // cfg.L) * cfg.L
-        else:
-            anchor = hashing.hash32_to_range(mixed, cfg.anchor_range)
-        local = hashing.hash_pair32_to_range(hi, lo, _SALT_LOCAL + 31 * j, cfg.L)
-        locs.append((anchor + local + j * cfg.m_part) & _M32)
-    return torch.stack(locs, dim=-2)
+    """(..., η, n_kmers) IDL locations using only 32-bit lane arithmetic, in
+    one ``idl_locations32`` launch on a CUDA tensor."""
+    return _fused(cfg, codes, "idl", lane32=True)
 
 
 def rh_locations_rolling32(cfg: IDLConfig, codes: torch.Tensor) -> torch.Tensor:
-    """Baseline random-hash locations on the 32-bit lane path."""
-    hi, lo = kmers.pack_kmers_pair32(codes, cfg.k)
-    return torch.stack([
-        (hashing.hash_pair32_to_range(hi, lo, _SALT_RH + 31 * j, cfg.m_part)
-         + j * cfg.m_part) & _M32
-        for j in range(cfg.eta)
-    ], dim=-2)
+    """Baseline random-hash locations on the 32-bit lane path, in one
+    ``idl_locations32`` launch on a CUDA tensor."""
+    return _fused(cfg, codes, "rh", lane32=True)

@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "gather_planned_rows": CSRC / "gather_planned_rows.cu",
+    "idl_locations": CSRC / "idl_locations.cu",
     "insert_planned": CSRC / "insert_planned.cu",
     "probe_planned_bits": CSRC / "probe_planned_bits.cu",
     "window_min": CSRC / "window_min.cu",

@@ -5,16 +5,21 @@ marker selects them: ``python -m pytest -m cuda tests/test_torch_*.py``).
 Comparisons are exact: the kernels move and OR integer bits.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import kernels  # noqa: E402
 from repro_torch.core import idl, minhash  # noqa: E402
 from repro_torch.index import engines  # noqa: E402
 from repro_torch.kernels.idl_insert import kernel as ins_kernel  # noqa: E402
 from repro_torch.kernels.idl_insert import ops as ins_ops  # noqa: E402
 from repro_torch.kernels.idl_insert import ref as ins_ref  # noqa: E402
+from repro_torch.kernels.idl_locations import kernel as loc_kernel  # noqa: E402
+from repro_torch.kernels.idl_locations import ops as loc_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.idl_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import ref as probe_ref  # noqa: E402
@@ -309,6 +314,106 @@ def test_window_min_one_launch_per_minhash(cuda, form, shape, w):
     want = wm_ref.window_min_binned_ref(a, w=w, **kw)
     assert got.shape == want.shape == shape[:-1] + (eta, shape[-1] - w + 1)
     assert torch.equal(got, want)
+
+
+# -- the fused location kernels ---------------------------------------------
+
+_LOC_CFGS = {
+    "full": dict(k=31, t=16, L=1 << 17, eta=4, m=1 << 26),
+    "flat": dict(k=31, t=16, L=1 << 15, eta=4, m=1 << 32),
+    "modulo": dict(k=20, t=8, L=40_000, eta=2, m=1 << 24),
+    "lemire": dict(k=16, t=16, L=64, eta=1, m=1 << 14),
+    "shift_anchor": dict(k=31, t=16, L=1 << 10, eta=4, m=1 << 30),
+    "empty_bins": dict(k=17, t=16, L=64, eta=8, m=1 << 14),
+    "t24": dict(k=31, t=24, L=1 << 12, eta=3, m=1 << 22),   # 64-bit only
+}
+# read batches, one kmer, 255 / 256 / 257 kmers (the tile and its
+# neighbours at k 31) and a row of 20 tiles
+_LOC_SHAPES = [(256, 230), (512, 230), (2, 31), (3, 285), (3, 286),
+               (3, 287), (1, 5000)]
+_LOC_VARIANTS = {"idl-doph-align": ("idl", "doph", True),
+                 "idl-doph": ("idl", "doph", False),
+                 "idl-exact-align": ("idl", "exact", True),
+                 "idl-exact": ("idl", "exact", False),
+                 "rh": ("rh", "doph", True)}
+
+
+@pytest.mark.parametrize("variant", sorted(_LOC_VARIANTS))
+@pytest.mark.parametrize("cfg_name", sorted(_LOC_CFGS))
+@pytest.mark.parametrize("lane32", [True, False], ids=["lane32", "hash64"])
+def test_idl_locations_kernel_vs_plain(cuda, lane32, cfg_name, variant):
+    """Each fused kernel against its plain version on the same card tensor,
+    bit for bit, one launch a call and no ``window_min`` launch, at read
+    batches, one kmer, rows across the 256-kmer tile and a 20-tile row; the
+    small shapes also against the plain version on the CPU."""
+    if lane32 and cfg_name == "t24":
+        pytest.skip("the 32-bit path takes t <= 16")
+    scheme, mode, align = _LOC_VARIANTS[variant]
+    cfg = idl.IDLConfig(minhash_mode=mode, align=align, **_LOC_CFGS[cfg_name])
+    plain = loc_kernel._PLAIN[(scheme, lane32)]
+    rng = np.random.default_rng(cfg.k * 10 + cfg.eta)
+    for shape in _LOC_SHAPES:
+        if shape[1] < cfg.k:
+            continue
+        codes = torch.as_tensor(rng.integers(0, 4, size=shape, dtype=np.uint8),
+                                device=cuda)
+        before = dict(kernels.launch_counts())
+        got = loc_ops.locations(cfg, codes, scheme, lane32=lane32)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        name = loc_kernel.NAME32 if lane32 else loc_kernel.NAME64
+        assert after[name] == before[name] + 1
+        assert after["window_min"] == before["window_min"]
+        assert got.shape == shape[:1] + (cfg.eta, shape[1] - cfg.k + 1)
+        assert torch.equal(got, plain(cfg, codes))
+        if shape[0] <= 3:
+            assert torch.equal(got.cpu(), plain(cfg, codes.cpu()))
+
+
+@pytest.mark.parametrize("lane32", [True, False], ids=["lane32", "hash64"])
+def test_idl_locations_kernel_genome_row_empty_batch_and_errors(cuda, lane32):
+    """A 1-D genome-length row, an empty batch (no launch) and the operand
+    checks on the card."""
+    cfg = idl.IDLConfig(**_LOC_CFGS["flat"])
+    entry = functools.partial(loc_ops.locations, lane32=lane32)
+    name = loc_kernel.NAME32 if lane32 else loc_kernel.NAME64
+    g = torch.as_tensor(np.random.default_rng(9).integers(
+        0, 4, size=300_000, dtype=np.uint8), device=cuda)
+    got = entry(cfg, g, "idl")
+    assert got.shape == (cfg.eta, g.numel() - cfg.k + 1)
+    assert torch.equal(got, loc_kernel._PLAIN[("idl", lane32)](cfg, g))
+    before = kernels.launch_counts()[name]
+    empty = entry(cfg, torch.zeros((0, 230), dtype=torch.uint8, device=cuda),
+                  "idl")
+    assert empty.shape == (0, cfg.eta, 200)
+    assert kernels.launch_counts()[name] == before
+    with pytest.raises(ValueError):                  # int64 codes
+        entry(cfg, g.to(torch.int64), "idl")
+    with pytest.raises(ValueError):                  # a non-contiguous view
+        loc_kernel.locations(cfg, g[:4000].view(2, 2000).t(), "idl",
+                             lane32=lane32)
+    with pytest.raises(ValueError):                  # shorter than k
+        entry(cfg, g[:30], "idl")
+
+
+def test_bitsliced_insert_and_query_launch_the_fused_kernel(cuda):
+    """A bit-sliced insert and query each launch ``idl_locations32`` once a
+    batch and ``window_min`` never, and answer as the plain backend."""
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 10, eta=4, m=1 << 20)
+    rng = np.random.default_rng(6)
+    eng = engines.BitSlicedIndex.build(cfg, "idl", 64, device=cuda)
+    reads = rng.integers(0, 4, size=(32, 230), dtype=np.uint8)
+    fids = rng.integers(0, 64, size=32)
+    before = kernels.launch_counts()
+    eng = eng.insert_batch(reads, fids, backend="idl_insert")
+    hits = eng.query_batch(reads[:16], backend="idl_probe")
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["idl_locations32"] == before["idl_locations32"] + 2
+    assert after["idl_locations64"] == before["idl_locations64"]
+    assert after["window_min"] == before["window_min"]
+    assert torch.equal(hits, eng.query_batch(reads[:16], backend="torch"))
+    assert eng.msmt(reads[:16]).cpu().numpy()[np.arange(16), fids[:16]].all()
 
 
 @pytest.mark.parametrize("m,L,c", [(1 << 20, 1 << 12, 128),
@@ -664,7 +769,8 @@ def test_two_worker_fabric_on_cuda(cuda, tmp_path):
         stats = fab.stats()
         launches = _fleet_launches(stats)
         assert launches["gather_planned_rows"] > 0
-        assert launches["window_min"] > 0
+        assert launches["idl_locations32"] > 0      # the workers' hashing
+        assert launches["window_min"] == 0
         assert launches["insert_planned"] == 2        # one per worker
         assert all(s["device"]["max_memory_allocated"] > 0
                    for s in stats.values())

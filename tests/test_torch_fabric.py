@@ -311,7 +311,8 @@ class TestFabricServing:
             assert dev["launches"] == {
                 "gather_planned_rows": 0, "gather_planned_bits": 0,
                 "probe_planned_bits": 0, "insert_planned": 0,
-                "insert_with_plan": 0, "window_min": 0}
+                "insert_with_plan": 0, "window_min": 0,
+                "idl_locations32": 0, "idl_locations64": 0}
 
 
 class TestFaultPaths:
