@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch
 from repro_torch.core import hashing, idl as idl_mod, minhash
 from repro_torch.index import packed, query
 from repro_torch.kernels.idl_insert import ops as ins_ops
+from repro_torch.obs import trace as obs_trace
 
 BACKENDS = ("torch", "idl_insert", "sharded")
 KINDS = ("bits", "rows", "cols")
@@ -180,7 +180,7 @@ class InsertPlan:
                      aux: Optional[torch.Tensor] = None):
         """The compact plan on the reads' device (what ``idl_insert``
         executes); times its ``locations`` and ``device_plan`` stages."""
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         flat = self.flat_positions(reads, aux)
         t0 = query.record_stage("insert", "locations", t0)
         cplan = ins_ops.compact_insert_plan(
@@ -225,8 +225,8 @@ class InsertPlan:
                 query.record_locality(
                     scheme=self.scheme, op="insert",
                     tile_bytes=cplan.dma_bytes, n_runs=cplan.n_runs,
-                    n_probes=cplan.n_locs, run_lengths=cplan.run_lengths)
-            t0 = time.perf_counter()
+                    n_probes=cplan.n_locs)
+            t0 = obs_trace.now()
             ins_ops.insert_planned(mat, cplan)
             query.record_stage("insert", "launch", t0)
         elif backend == "sharded":
@@ -358,13 +358,19 @@ def build_archive(
     ``pad_final`` a partial tail chunk repeats a read to fill the batch.
     ``window_min`` inserts only window-``w`` minimizer kmers (fewer bits
     than a full build).
+
+    The host's time goes to ``planner.stage_ms{op=build}`` in laps that
+    cover the whole build: ``window`` once a sequence that has windows
+    (reading it, its ``window_reads`` and the pending lists' ``extend``),
+    ``batch`` once a flushed batch (the slice, the pad, ``np.stack`` and
+    the file-id array) and ``insert`` around each ``index.insert_batch``.
     """
     from repro_torch.data import genome as genome_mod
 
     k = int(getattr(index, "k", None) or index.cfg.k)
     pending: dict[int, tuple[list, list]] = {}
 
-    def flush(length: int, force: bool):
+    def flush(length: int, force: bool, t0: float) -> float:
         nonlocal index
         reads_l, fids_l = pending[length]
         while len(reads_l) >= chunk_reads or (force and reads_l):
@@ -374,10 +380,14 @@ def build_archive(
             if pad_final and take < chunk_reads:
                 batch = batch + [batch[0]] * (chunk_reads - take)
                 fids = fids + [fids[0]] * (chunk_reads - take)
-            index = index.insert_batch(
-                np.stack(batch), np.asarray(fids, dtype=np.int32),
-                backend=backend, window_min=window_min, **kw)
+            batch, fids = np.stack(batch), np.asarray(fids, dtype=np.int32)
+            t0 = query.record_stage("build", "batch", t0)
+            index = index.insert_batch(batch, fids, backend=backend,
+                                       window_min=window_min, **kw)
+            t0 = query.record_stage("build", "insert", t0)
+        return t0
 
+    t0 = obs_trace.now()
     for pos, item in enumerate(files):
         fid, seqs = _file_sequences(item, pos)
         for codes in seqs:
@@ -388,9 +398,10 @@ def build_archive(
             reads_l, fids_l = pending.setdefault(length, ([], []))
             reads_l.extend(windows)
             fids_l.extend([fid] * windows.shape[0])
-            flush(length, force=False)
+            t0 = query.record_stage("build", "window", t0)
+            t0 = flush(length, False, t0)
     for length in sorted(pending):
-        flush(length, force=True)
+        t0 = flush(length, True, t0)
     return index
 
 

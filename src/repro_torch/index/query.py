@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -60,21 +59,17 @@ from repro_torch.kernels.idl_probe import kernel as probe_kernel
 from repro_torch.kernels.idl_probe import ops as probe_ops
 from repro_torch.kernels.idl_probe.ref import and_reduce
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 BACKENDS = ("torch", "idl_probe", "sharded")
 
 
 def record_locality(*, scheme: str, op: str, tile_bytes: int, n_runs: int,
-                    n_probes: int, run_lengths) -> None:
+                    n_probes: int) -> None:
     """Feed one executed probe/insert plan into the process registry:
-    planned tile bytes (the quantity IDL minimizes), run/probe totals, and
-    the per-run length histogram. Called once per executed batch on the
-    planned backends (``idl_probe`` / ``idl_insert``).
-
-    The scalar counters are exact on every batch; the run-length histogram
-    is fed from every :data:`_HIST_SAMPLE`-th batch per (scheme, op).
-    ``run_lengths`` is an array, or a callable that returns one, called
-    only on those batches (the compact insert plan builds it on demand)."""
+    planned tile bytes (the quantity IDL minimizes) and the run, probe and
+    batch totals. Called once per executed batch on the planned backends
+    (``idl_probe`` / ``idl_insert``)."""
     reg = obs_metrics.DEFAULT
     if not reg.enabled:
         return
@@ -86,23 +81,19 @@ def record_locality(*, scheme: str, op: str, tile_bytes: int, n_runs: int,
             reg.counter("locality.probe_runs", **labels),
             reg.counter("locality.probes", **labels),
             reg.counter("locality.batches", **labels),
-            reg.histogram("locality.run_length", **labels),
         )
-    c_bytes, c_runs, c_probes, c_batches, h_runs = handles
+    c_bytes, c_runs, c_probes, c_batches = handles
     c_bytes.inc(tile_bytes)
     c_runs.inc(n_runs)
     c_probes.inc(n_probes)
     c_batches.inc()
-    if int(c_batches.value) % _HIST_SAMPLE == 1 or _HIST_SAMPLE == 1:
-        h_runs.observe_array(run_lengths() if callable(run_lengths)
-                             else run_lengths)
 
 
 _LOCALITY_HANDLES: dict = {}
 
 
 def record_stage(op: str, stage: str, t0: float) -> float:
-    """Add the host milliseconds since ``t0`` (a ``time.perf_counter()``
+    """Add the host milliseconds since ``t0`` (an ``obs.trace.now()``
     reading) to the ``planner.stage_ms`` histogram of (op, stage); returns
     the current reading, the next stage's ``t0``.
 
@@ -112,22 +103,17 @@ def record_stage(op: str, stage: str, t0: float) -> float:
     the matrix's device; the host waits for the hashing and the plan: once
     for a query, for its run count and bounds read together, four times
     for an insert's sort and counts) and ``launch`` (the kernel's launch,
-    with no wait; the kernel itself runs on asynchronously)."""
-    now = time.perf_counter()
-    reg = obs_metrics.DEFAULT
-    if reg.enabled:
-        hist = _STAGE_HANDLES.get((op, stage))
-        if hist is None:
-            hist = _STAGE_HANDLES[(op, stage)] = reg.histogram(
-                "planner.stage_ms", tier="planner", op=op, stage=stage)
-        hist.observe(1e3 * (now - t0))
-    return now
+    with no wait; the kernel itself runs on asynchronously). The archive
+    builder times its own under ``op="build"`` (``ingest.build_archive``).
+    """
+    timer = _STAGE_TIMERS.get(op)
+    if timer is None:
+        timer = _STAGE_TIMERS[op] = obs_metrics.StageTimer(
+            "planner.stage_ms", tier="planner", op=op)
+    return timer.lap(stage, t0)
 
 
-_STAGE_HANDLES: dict = {}
-
-# Feed the run-length histogram from every Nth batch (1 = every batch).
-_HIST_SAMPLE = 4
+_STAGE_TIMERS: dict = {}
 
 
 def as_reads(reads, device) -> torch.Tensor:
@@ -261,7 +247,7 @@ class QueryPlan:
         indices, or the bit locations of a bit probe (then planned in
         blocks of ``32 * rows_per_block`` bits: the same blocks, so the
         same runs)."""
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         locs = self.locations(reads)
         t0 = record_stage("query", "locations", t0)
         cplan = probe_ops.compact_probe_plan(
@@ -308,8 +294,8 @@ class QueryPlan:
         record_locality(
             scheme=self.scheme, op="query",
             tile_bytes=self.run_dma_bytes(cplan), n_runs=cplan.n_runs,
-            n_probes=cplan.n_probes, run_lengths=cplan.run_lengths)
-        t0 = time.perf_counter()
+            n_probes=cplan.n_probes)
+        t0 = obs_trace.now()
         if not self.bit_probe:
             out = probe_kernel.gather_planned_rows(matrix, cplan)
         elif self.row_words <= PROBE_BITS_MAX_WORDS:

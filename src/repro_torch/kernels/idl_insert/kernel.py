@@ -64,8 +64,8 @@ class CompactInsertPlan:
     def run_lengths(self) -> np.ndarray:
         """(n_runs,) int32 inserts per run in the planner's run order: each
         block's positions in runs of C, then the remainder. Built on demand
-        (a device pass and a copy to the host): the telemetry asks only on
-        the batches its histogram samples."""
+        (a device pass and a copy to the host), for the parity tests; the
+        insert path does not call it."""
         c = self.inserts_per_run
         counts = self.block_counts
         runs = (counts + c - 1) // c

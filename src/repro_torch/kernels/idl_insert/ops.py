@@ -9,9 +9,10 @@ run plan, pad lane or tile reaches the kernel.
   matrix's device with torch ops alone: the batch's positions sorted and
   deduplicated (``torch.unique``), then counted per row block
   (``torch.unique_consecutive``). Its counters (``n_locs``, ``n_runs``,
-  ``n_tiles``, ``dma_bytes``, :meth:`CompactInsertPlan.run_lengths`) equal
-  the reference planner's, so the locality telemetry stays the reference's;
-  its sorted positions are the kernel's operand.
+  ``n_tiles``, ``dma_bytes``; :meth:`CompactInsertPlan.run_lengths` on
+  demand, for the parity tests) equal the reference planner's, so the
+  ``locality.*`` counters stay the reference's; its sorted positions are
+  the kernel's operand.
 * :func:`plan_insert_runs` and :func:`plan_insert_rounds` — the reference's
   two numpy planners, verbatim and held by their parity tests. The run plan
   (TPU layout: 128 lanes per run, -1 padded, pow2 pad runs) and the legacy

@@ -73,8 +73,8 @@ class CompactProbePlan:
 
     def run_lengths(self) -> np.ndarray:
         """(n_runs,) int32 probes per run in the planner's run order. Built
-        on demand (a device pass and a copy to the host): the telemetry
-        asks only on the batches its histogram samples."""
+        on demand (a device pass and a copy to the host), for the parity
+        tests; the serve path does not call it."""
         starts = torch.nonzero(run_starts(
             self.rows, self.block_bits, self.probes_per_run))[:, 0]
         ends = torch.cat([starts[1:], starts.new_tensor([self.n_probes])])

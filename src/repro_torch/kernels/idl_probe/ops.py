@@ -6,9 +6,9 @@ themselves, so no run plan reaches the card.
 
 * :func:`compact_probe_plan` — the serve path's plan, built on the
   matrix's device with torch ops alone: the stream itself (the kernels'
-  operand) and the reference planner's counters (``n_runs``, ``n_probes``,
-  :meth:`CompactProbePlan.run_lengths`), so the locality telemetry stays
-  the reference's; one host wait.
+  operand) and the reference planner's counters (``n_runs``, ``n_probes``;
+  :meth:`CompactProbePlan.run_lengths` on demand, for the parity tests),
+  so the ``locality.*`` counters stay the reference's; one host wait.
 * :func:`plan_probe_runs` — the reference's numpy planner, verbatim and
   held by its parity tests; off the serve path. :func:`gather_planned_rows`
   and :func:`probe_membership` execute its plans all the same: their valid

@@ -25,6 +25,10 @@ time, never on the hot path.
 Disabling (``set_enabled(False)``) turns every already-bound handle into a
 cheap no-op (one attribute load + branch per event) — used by the obs
 overhead bench to time obs-off serving without rebuilding the stack.
+
+Host stages are timed by :class:`StageTimer`: the milliseconds between two
+readings of :func:`repro_torch.obs.trace.now` (the spans' clock), one
+pre-bound histogram series per stage.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import threading
 import time
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
-import numpy as np
+from repro_torch.obs.trace import now
 
 N_BUCKETS = 64          # log2 buckets: value v lands in int(v).bit_length()
 
@@ -133,57 +137,6 @@ class Histogram:
             if v > self.max:
                 self.max = v
 
-    def observe_array(self, values) -> None:
-        """Bulk observe a numpy array of non-negative values in one pass —
-        per-batch recording (e.g. every run length of a probe plan)
-        without a per-element Python call. Bit-identical to a loop of
-        scalar ``observe`` calls on either path below."""
-        if not self._registry.enabled:
-            return
-        v = np.asarray(values)
-        if v.size == 0:
-            return
-        if v.dtype.kind in "iu":
-            # small-range int fast path (run lengths, probe counts...):
-            # bincount the VALUES, then fold the tiny value-count vector
-            # through a bit_length table — every per-element pass after
-            # the bincount operates on <= hi+1 entries, not v.size
-            lo, hi = int(v.min()), int(v.max())
-            if lo >= 0 and hi < 4096:
-                vals = np.arange(hi + 1, dtype=np.float64)
-                counts_v = np.bincount(v.reshape(-1), minlength=hi + 1)
-                exps_tab = np.frexp(vals)[1]        # == bit_length per value
-                counts = np.bincount(exps_tab, weights=counts_v,
-                                     minlength=N_BUCKETS)
-                total = float(np.dot(counts_v, vals))
-                with self._lock:
-                    for i in np.flatnonzero(counts):
-                        self.buckets[i] += int(counts[i])
-                    self.count += int(v.size)
-                    self.sum += total
-                    if lo < self.min:
-                        self.min = lo
-                    if hi > self.max:
-                        self.max = hi
-                return
-        vf = v.astype(np.float64, copy=False)
-        # frexp exponent == floor(log2(v)) + 1 == int(v).bit_length() for
-        # v >= 1; clipping to 0 folds v < 1 into bucket 0 — identical
-        # binning to the scalar path, in one C pass instead of a
-        # where/floor/log2 chain
-        exps = np.clip(np.frexp(vf)[1], 0, N_BUCKETS - 1)
-        counts = np.bincount(exps, minlength=N_BUCKETS)
-        lo, hi, total = float(vf.min()), float(vf.max()), float(vf.sum())
-        with self._lock:
-            for i in np.flatnonzero(counts):
-                self.buckets[i] += int(counts[i])
-            self.count += int(v.size)
-            self.sum += total
-            if lo < self.min:
-                self.min = lo
-            if hi > self.max:
-                self.max = hi
-
     def _reset(self) -> None:
         with self._lock:
             for i in range(N_BUCKETS):
@@ -192,6 +145,41 @@ class Histogram:
             self.sum = 0.0
             self.min = float("inf")
             self.max = float("-inf")
+
+
+class StageTimer:
+    """Host milliseconds of named stages into one histogram, a series per
+    stage: ``StageTimer("planner.stage_ms", tier="planner", op="build")``
+    binds ``planner.stage_ms{op=build,stage=<s>,tier=planner}`` on stage
+    ``s``'s first observation in the default registry and keeps the
+    handle. Stamps are readings of :func:`~repro_torch.obs.trace.now`, the
+    clock the spans use, so a stage that ends where a span ends can take
+    the span's stamp."""
+
+    __slots__ = ("_registry", "_name", "_labels", "_hists")
+
+    def __init__(self, name: str, **labels: object):
+        self._registry = DEFAULT
+        self._name = name
+        self._labels = labels
+        self._hists: Dict[str, Histogram] = {}
+
+    def observe(self, stage: str, t0: float, t1: float) -> None:
+        """Add ``t1 - t0`` (two ``now()`` readings) as ms to ``stage``."""
+        if not self._registry.enabled:
+            return
+        hist = self._hists.get(stage)
+        if hist is None:
+            hist = self._hists[stage] = self._registry.histogram(
+                self._name, stage=stage, **self._labels)
+        hist.observe(1e3 * (t1 - t0))
+
+    def lap(self, stage: str, t0: float) -> float:
+        """Observe ``stage`` from ``t0`` to now; returns the reading, the
+        next stage's ``t0``."""
+        t1 = now()
+        self.observe(stage, t0, t1)
+        return t1
 
 
 class Registry:

@@ -39,9 +39,13 @@ from typing import Dict, List, Optional, Tuple
 # Trace context as it rides an IPC frame: (trace_id, parent_span_id).
 TraceContext = Tuple[str, str]
 
+# The one clock of the process's spans and stage timers (seconds,
+# monotonic): a span and a stage that share a boundary share its stamp.
+now = time.monotonic
+
 # Re-based once: epoch seconds at monotonic zero, so monotonic stamps
 # taken anywhere in this process convert to a shared wall timeline.
-_EPOCH0 = time.time() - time.monotonic()
+_EPOCH0 = time.time() - now()
 
 # Process-wide id sequence shared by every Tracer instance.
 _SEQ = itertools.count(1)
@@ -69,7 +73,7 @@ class Span:
         self.span_id = span_id
         self.parent_id = parent_id
         self.attrs = attrs
-        self.t0 = time.monotonic()
+        self.t0 = now()
         self._done = False
 
     def context(self) -> TraceContext:
@@ -81,7 +85,7 @@ class Span:
         if self._done:                     # idempotent: late reply after a
             return                         # death-closure must not re-emit
         self._done = True
-        t1 = time.monotonic()
+        t1 = now()
         if attrs:
             merged = dict(self.attrs) if self.attrs else {}
             merged.update(attrs)

@@ -211,7 +211,7 @@ class LiveGeneSearchService(service_mod.GeneSearchService):
         into the front cache. Exact because membership is a pure function
         of ``(kmer, state)`` and OR over duplicates is idempotent.
         """
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         arr = np.asarray(reads)
         codes = kmer_cache_mod.pack_codes(arr, self._k)
         flat = codes.ravel()

@@ -166,7 +166,7 @@ class ShardSearchService(service_mod.GeneSearchService):
                   ) -> List[service_mod.SearchResult]:
         if self._spec.row_probe:
             return super()._finalize(take, bucket, out)
-        out = out.cpu().numpy()   # (max_batch, bucket, W') local misses
+        out = self._wait(out)   # (max_batch, bucket, W') local misses
         return [service_mod.SearchResult(
             request_id=req.request_id,
             # trim pad kmers NOW: a pad slot has zero misses and would

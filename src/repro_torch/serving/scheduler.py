@@ -553,23 +553,27 @@ class AsyncScheduler:
         telemetry (completer thread); returns its results. Any failure
         here, bookkeeping included, fails the batch's futures."""
         pairs = [(p.request, p.n_kmers) for p in take]
-        results = self._svc._finalize(pairs, bucket, out)
+        svc = self._svc
+        svc._t_copied = t_exec
+        results = svc._finalize(pairs, bucket, out)
         now = time.monotonic()
+        t_fill = min(p.t_enq for p in take)     # the batch's queueing
+        svc._record_stages(t_fill, t0, t_exec, now)
         wall_ms = (now - t0) * 1e3
-        rows = self._svc.config.max_batch
-        version = results[0].version if results else self._svc.version
+        rows = svc.config.max_batch
+        version = results[0].version if results else svc.version
         stats = ClusterStats(
             replica=self.replica_id, version=version,
             bucket=bucket, n_requests=len(take), batch_rows=rows,
             flush_reason=reason,
-            queue_ms=(t0 - min(p.t_enq for p in take)) * 1e3,
+            queue_ms=(t0 - t_fill) * 1e3,
             wall_ms=wall_ms,
             cache_hits=cache_hits, cache_lookups=cache_lookups)
         self.stats.append(stats)
         self._obs_flushes[reason].inc()
         self._obs_queue_ms.observe(stats.queue_ms)
         self._obs_wall_ms.observe(wall_ms)
-        self._svc._record_batch(service_mod.BatchStats(
+        svc._record_batch(service_mod.BatchStats(
             bucket=bucket, n_requests=len(take), batch_rows=rows,
             pad_rows=rows - len(take),
             pad_kmers=rows * bucket - sum(p.n_kmers for p in take),
@@ -578,6 +582,7 @@ class AsyncScheduler:
             [(p.trace, p.t_enq, p.request.request_id) for p in take],
             bucket=bucket, t0=t0, t_asm=t_asm, t_exec=t_exec,
             t_done=now, replica=self.replica_id, version=version)
+        svc._stages.lap("obs", now)
         if self.admission is not None:
             self.admission.observe_batch(stats, now)
         if self._on_batch is not None:

@@ -31,6 +31,13 @@ Port of :mod:`repro.serving.service` for all four engines.
   path: dedup, the probe, the fill and the cache insert), ``probe`` (the
   device probe of the distinct misses and its copy back, within
   ``miss``) and ``upload`` (the rows' copy up and the postlude's enqueue).
+* **Stage timers** — every batch adds its host ms to
+  ``serving.stage_ms{stage}``: ``admit`` (the batch's fill, from its
+  bucket's queue going non-empty to the flush; queueing under the
+  scheduler), ``wait`` (``_finalize``'s ``.cpu()``: the device and the
+  copy back) and ``decode`` (the copy's return to the batch's results
+  stored), which split the ``finalize`` span, and ``obs`` (the batch's
+  counters, stage observations and request spans).
 
 The default backend is ``"idl_probe"``: per served bucket batch on a CUDA
 index, one kernel launch (``gather_planned_rows`` for the bit-sliced index,
@@ -44,7 +51,6 @@ import collections
 import dataclasses
 import functools
 import itertools
-import time
 from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -177,21 +183,14 @@ def emit_request_spans(entries, *, bucket: int, t0: float, t_asm: float,
 
 
 def record_cache_stage(stage: str, t0: float) -> float:
-    """Add the host ms since ``t0`` (a ``time.perf_counter()`` reading) to
-    the ``serving.cache_stage_ms`` histogram of ``stage``; returns the
-    current reading."""
-    now = time.perf_counter()
-    reg = obs_metrics.DEFAULT
-    if reg.enabled:
-        hist = _CACHE_STAGES.get(stage)
-        if hist is None:
-            hist = _CACHE_STAGES[stage] = reg.histogram(
-                "serving.cache_stage_ms", tier="service", stage=stage)
-        hist.observe(1e3 * (now - t0))
-    return now
+    """Add the host ms since ``t0`` (an ``obs.trace.now()`` reading) to the
+    ``serving.cache_stage_ms`` histogram of ``stage``; returns the current
+    reading."""
+    return _CACHE_STAGES.lap(stage, t0)
 
 
-_CACHE_STAGES: dict = {}
+_CACHE_STAGES = obs_metrics.StageTimer("serving.cache_stage_ms",
+                                       tier="service")
 
 
 def _msmt_reduce(kind: str, n_files: int, theta: float, per, valid, need):
@@ -242,7 +241,11 @@ class GeneSearchService:
         self._obs_batch_rows = reg.counter("serving.batch_rows", **labels)
         self._obs_pad_rows = reg.counter("serving.pad_rows", **labels)
         self._obs_pad_kmers = reg.counter("serving.pad_kmers", **labels)
-        self._obs_wall_ms = reg.histogram("serving.batch_wall_ms", **labels)
+        self._stages = obs_metrics.StageTimer("serving.stage_ms", **labels)
+        # bucket -> when its queue went non-empty (the ``admit`` stage's
+        # start), and when the last batch's copy back returned (``wait``)
+        self._filling: Dict[int, float] = {}
+        self._t_copied = 0.0
         # the cached path's host <-> device copies: the batch's per-kmer
         # rows up for the postlude, the probed miss rows down
         self._obs_bytes_up = reg.counter("serving.cache_bytes_up", **labels)
@@ -322,12 +325,14 @@ class GeneSearchService:
         self._inflight.add(rid)
         if obs_trace.DEFAULT.enabled:
             self._admitted[rid] = ((obs_trace.DEFAULT.mint_trace(), None),
-                                   time.monotonic())
+                                   obs_trace.now())
         req = SearchRequest(read=request.read, request_id=rid)
         bucket = self.bucket_for(n_kmers)
-        self._pending.setdefault(bucket, []).append((req, n_kmers))
-        if self.config.auto_flush and \
-                len(self._pending[bucket]) >= self.config.max_batch:
+        queue = self._pending.setdefault(bucket, [])
+        if not queue:
+            self._filling[bucket] = obs_trace.now()
+        queue.append((req, n_kmers))
+        if self.config.auto_flush and len(queue) >= self.config.max_batch:
             self._flush_bucket(bucket)
         return rid
 
@@ -379,7 +384,7 @@ class GeneSearchService:
     def _post_on_device(self, reduce, dev, per: np.ndarray, valid, need):
         """The cached path's postlude: the batch's host rows go to the
         device in one copy (counted), then the coverage reduction."""
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         self._obs_bytes_up.inc(per.nbytes)
         out = reduce(torch.as_tensor(per, device=dev),
                      torch.as_tensor(valid, device=dev),
@@ -400,7 +405,7 @@ class GeneSearchService:
         power of two itself, and padding with a repeated kmer adds no
         distinct kmer, so the answers and counters are the same).
         """
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         out = state_mod.to_engine(state).query_batch(
             torch.as_tensor(kmers, device=state.device),
             backend=self.config.backend, dedup=True)
@@ -418,7 +423,7 @@ class GeneSearchService:
         batch. Returns a fresh ``(n, ...)`` row matrix the caller may
         mutate.
         """
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         cache.begin(generation)
         vals, hit = cache.lookup(flat)
         t0 = record_cache_stage("lookup", t0)
@@ -460,7 +465,7 @@ class GeneSearchService:
         """The cache-mediated probe: host reads -> per-kmer membership rows
         on the host, ``(B, n_kmers, ...)``. Exact: membership is a pure
         function of ``(kmer, state)``."""
-        t0 = time.perf_counter()
+        t0 = obs_trace.now()
         arr = np.asarray(reads)
         codes = kmer_cache_mod.pack_codes(arr, self._k)
         flat = codes.ravel()
@@ -499,9 +504,17 @@ class GeneSearchService:
             torch.as_tensor(valid, device=dev),
             torch.as_tensor(need, device=dev))
 
+    def _wait(self, out) -> np.ndarray:
+        """The verdicts on the host: the host waits for the device and the
+        copy back. Stamps the copy's return, where ``wait`` ends and
+        ``decode`` starts."""
+        out = out.cpu().numpy()
+        self._t_copied = obs_trace.now()
+        return out
+
     def _finalize(self, take, bucket: int, out) -> List[SearchResult]:
         """Copy the verdicts to the host and decode per-request results."""
-        out = out.cpu().numpy()
+        out = self._wait(out)
         single_set = self._state.meta.engine == "bloom"
         results = []
         for i, (req, n_k) in enumerate(take):
@@ -521,14 +534,16 @@ class GeneSearchService:
             queue[:self.config.max_batch], queue[self.config.max_batch:]
         if not take:
             return
-        t0 = time.monotonic()
+        t0 = obs_trace.now()
+        t_fill = self._filling.pop(bucket, t0)
         batch, valid, need = self._assemble(take, bucket)
-        t_asm = time.monotonic()
+        t_asm = obs_trace.now()
         out = self._execute(bucket, batch, valid, need)
-        t_exec = time.monotonic()
+        t_exec = self._t_copied = obs_trace.now()
         for res in self._finalize(take, bucket, out):
             self._results[res.request_id] = res
-        t_done = time.monotonic()
+        t_done = obs_trace.now()
+        self._record_stages(t_fill, t0, t_exec, t_done)
         self._record_batch(BatchStats(
             bucket=bucket, n_requests=len(take),
             batch_rows=self.config.max_batch,
@@ -543,8 +558,23 @@ class GeneSearchService:
         emit_request_spans(entries, bucket=bucket, t0=t0, t_asm=t_asm,
                            t_exec=t_exec, t_done=t_done,
                            version=self._version)
+        t_obs = self._stages.lap("obs", t_done)
+        if self._pending[bucket]:         # the rest starts the next batch
+            self._filling[bucket] = t_obs
 
     # -- observability ------------------------------------------------------
+    def _record_stages(self, t_fill: float, t0: float, t_exec: float,
+                       t_done: float) -> None:
+        """One batch's ``admit`` (``t_fill`` to the flush's ``t0``),
+        ``wait`` (``t_exec`` to the copy's return, stamped by ``_wait``)
+        and ``decode`` (to ``t_done``): ``wait`` + ``decode`` is the
+        ``finalize`` span. A ``_finalize`` that never calls ``_wait``
+        leaves the stamp at ``t_exec``: all of it is ``decode``."""
+        stages, t_copied = self._stages, self._t_copied
+        stages.observe("admit", t_fill, t0)
+        stages.observe("wait", t_exec, t_copied)
+        stages.observe("decode", t_copied, t_done)
+
     def _record_batch(self, bs: BatchStats) -> None:
         """Window the per-batch record and mirror the aggregates into the
         process registry."""
@@ -554,7 +584,6 @@ class GeneSearchService:
         self._obs_batch_rows.inc(bs.batch_rows)
         self._obs_pad_rows.inc(bs.pad_rows)
         self._obs_pad_kmers.inc(bs.pad_kmers)
-        self._obs_wall_ms.observe(bs.wall_ms)
 
     def compile_counts(self) -> Dict[int, int]:
         """Cached runners per bucket (one each: PyTorch runs eagerly, so a

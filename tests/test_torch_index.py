@@ -309,6 +309,41 @@ def test_planned_backends_record_locality_and_stage_times(rng, op):
     assert all(h["count"] == 1 and h["sum"] >= 0 for h in stages.values())
 
 
+@pytest.mark.parametrize("op", ["query", "insert"])
+def test_planned_batches_read_no_run_lengths(rng, monkeypatch, op):
+    """The serve and insert paths count their plans' runs (``locality.*``)
+    without building run lengths, and keep no run-length or batch-wall
+    histogram."""
+    from repro_torch.obs import metrics as t_metrics
+    from repro_torch.serving import service
+
+    def refuse(self):
+        raise AssertionError("run_lengths() called on the main path")
+
+    monkeypatch.setattr(probe_kernel.CompactProbePlan, "run_lengths", refuse)
+    monkeypatch.setattr(ins_kernel.CompactInsertPlan, "run_lengths", refuse)
+    _, tc = _cfgs()
+    eng = engines.BitSlicedIndex.build(tc, "idl", 64, device="cpu")
+    eng = eng.insert_batch(rng.integers(0, 4, size=(8, 90), dtype=np.uint8),
+                           np.arange(8), backend="idl_insert")
+    svc = service.GeneSearchService(eng, service.ServiceConfig(max_batch=4))
+    where = {"scheme": "idl", "op": op}
+    before = t_metrics.counter_total(t_metrics.DEFAULT.snapshot(),
+                                     "locality.batches", where)
+    for i in range(8):
+        reads = rng.integers(0, 4, size=(4, 90), dtype=np.uint8)
+        if op == "query":
+            svc.search(list(reads))
+        else:
+            eng = eng.insert_batch(reads, (np.arange(4) + 4 * i) % 64,
+                                   backend="idl_insert")
+    snap = t_metrics.DEFAULT.snapshot()
+    assert t_metrics.counter_total(snap, "locality.batches",
+                                   where) == before + 8
+    assert "locality.run_length" not in snap["hists"]
+    assert "serving.batch_wall_ms" not in snap["hists"]
+
+
 def test_scatter_or_matrix_drops_out_of_range_and_duplicates():
     mat = torch.zeros((4, 2), dtype=torch.int32)
     rows = torch.tensor([0, 0, 3, 4, -1, 3])

@@ -8,6 +8,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from repro.serving import service as j_service  # noqa: E402
 from repro_torch.configs import idl_genesearch  # noqa: E402
 from repro_torch.data import genome  # noqa: E402
 from repro_torch.index import engines, ingest, state as state_mod, store  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import service  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,6 +185,111 @@ def test_service_from_snapshot_and_admission(built, tmp_path):
     with pytest.raises(ValueError):
         service.ServiceConfig(backend="jnp")
     assert service.bucket_for(70) == j_service.bucket_for(70) == 128
+
+
+# -- the service's stage timers ------------------------------------------------
+
+STAGES = ("admit", "wait", "decode", "obs")
+
+
+def _stage_deltas(before, after, name="serving.stage_ms", **match):
+    """``{stage: (count, sum)}`` histogram ``name`` added between two
+    registry snapshots, over its series whose labels include ``match``."""
+    out = {}
+    for lk, h in after["hists"].get(name, {}).items():
+        labels = obs_metrics.parse_label_key(lk)
+        if any(labels.get(k) != v for k, v in match.items()):
+            continue
+        old = before["hists"].get(name, {}).get(lk, {"count": 0, "sum": 0.0})
+        if h["count"] > old["count"]:
+            stage = labels["stage"]
+            c, t = out.get(stage, (0, 0.0))
+            out[stage] = (c + h["count"] - old["count"],
+                          t + h["sum"] - old["sum"])
+    return out
+
+
+def _full_batch(built, n=4):
+    """``n`` reads of one kmer bucket: one full batch at ``max_batch=n``."""
+    cfg, archive, _, _ = built
+    return [archive[i].reads(cfg.read_len, 1)[0] for i in range(n)]
+
+
+@pytest.mark.parametrize("front", ["service", "scheduler"])
+def test_one_batch_observes_each_stage_once(built, front):
+    from repro_torch.serving import scheduler
+
+    teng = built[3]
+    reads = _full_batch(built)
+    svc = service.GeneSearchService(teng, service.ServiceConfig(max_batch=4))
+    before = obs_metrics.DEFAULT.snapshot()
+    if front == "service":
+        got = svc.search(reads)
+    else:
+        with scheduler.AsyncScheduler(
+                svc, scheduler.SchedulerConfig(max_delay_ms=500.0)) as s:
+            got = [f.result(timeout=60) for f in
+                   [s.submit(r) for r in reads]]
+    deltas = _stage_deltas(before, obs_metrics.DEFAULT.snapshot())
+    assert sorted(deltas) == sorted(STAGES)
+    assert all(c == 1 and t >= 0 for c, t in deltas.values())
+    assert [r.file_ids for r in got] == [r.file_ids
+                                         for r in svc.search(reads)]
+
+
+def test_wait_and_decode_split_the_finalize_span(built):
+    svc = service.GeneSearchService(built[3],
+                                    service.ServiceConfig(max_batch=4))
+    before = obs_metrics.DEFAULT.snapshot()
+    svc.search(_full_batch(built))
+    deltas = _stage_deltas(before, obs_metrics.DEFAULT.snapshot())
+    (fin,) = [r for r in list(obs_trace.DEFAULT._ring)[-3:]
+              if r[3] == "finalize"]
+    split_s = (deltas["wait"][1] + deltas["decode"][1]) * 1e-3
+    assert abs(split_s - fin[6]) < 1e-6
+
+
+def test_search_leaves_the_batch_stages_last_in_the_ring(built):
+    svc = service.GeneSearchService(built[3],
+                                    service.ServiceConfig(max_batch=4))
+    svc.search(_full_batch(built))
+    tail = list(obs_trace.DEFAULT._ring)[-3:]
+    assert [r[3] for r in tail] == ["assemble", "execute", "finalize"]
+    assert all(len(r) == 9 for r in tail)
+    for prev, nxt in zip(tail, tail[1:]):                 # shared stamps
+        assert abs(prev[5] + prev[6] - nxt[5]) < 1e-6
+
+
+def test_span_epoch_start_is_the_wall_clock():
+    trc = obs_trace.Tracer()
+    t = obs_trace.now()
+    wall_ns = time.time_ns()
+    trc.emit("probe", trc.mint_trace(), None, t, t)
+    (rec,) = trc.records()
+    assert abs(rec["t0"] * 1e9 - wall_ns) < 2e6
+
+
+def test_build_archive_times_its_stages(built, monkeypatch):
+    cfg, archive, _, _ = built
+    sent = []
+    insert = engines.BitSlicedIndex.insert_batch
+
+    def counted(self, reads, file_ids=None, **kw):
+        sent.append(len(reads))
+        return insert(self, reads, file_ids, **kw)
+
+    monkeypatch.setattr(engines.BitSlicedIndex, "insert_batch", counted)
+    files = archive[:6]
+    teng = engines.BitSlicedIndex.build(cfg.idl_config(), cfg.scheme,
+                                        cfg.n_files, device="cpu")
+    before = obs_metrics.DEFAULT.snapshot()
+    ingest.build_archive(teng, files, read_len=cfg.read_len, chunk_reads=16)
+    deltas = _stage_deltas(before, obs_metrics.DEFAULT.snapshot(),
+                           "planner.stage_ms", op="build")
+    assert sorted(deltas) == ["batch", "insert", "window"]
+    assert len(sent) > 1 and set(sent) == {16}
+    assert deltas["insert"][0] == deltas["batch"][0] == len(sent)
+    assert deltas["window"][0] == len(files)
 
 
 def _run(module, args, pythonpath):
