@@ -493,8 +493,12 @@ def _finish_probe(rows: torch.Tensor, locs: torch.Tensor, *,
 # Shared coverage reductions (MSMT postludes).
 # ---------------------------------------------------------------------------
 
-def coverage_need(theta: float, n_kmers: int) -> int:
-    """Integer hit threshold for kmer-coverage >= theta (exact at 1.0)."""
+def coverage_need(theta: float, n_kmers):
+    """Integer hit threshold for kmer-coverage >= theta (exact at 1.0):
+    an ``int`` for an ``int`` kmer count, an int64 array (one threshold
+    each) for an integer array of them."""
+    if isinstance(n_kmers, np.ndarray):
+        return np.ceil(theta * n_kmers - 1e-9).astype(np.int64)
     return int(np.ceil(theta * n_kmers - 1e-9))
 
 

@@ -147,6 +147,11 @@ class Tracer:
         """New trace id, unique across processes (pid + per-process seq)."""
         return "t" + self._prefix + "%x" % next(self._seq)
 
+    def mint_traces(self, n: int) -> List[str]:
+        """``n`` new trace ids at once (an admitted block of requests)."""
+        head = "t" + self._prefix
+        return [head + "%x" % i for i in itertools.islice(self._seq, n)]
+
     def _mint_span(self) -> str:
         return self._prefix + "%x" % next(self._seq)
 

@@ -15,6 +15,14 @@ Port of :mod:`repro.serving.service` for all four engines.
 * **Admission queue + stats** — ``submit`` enqueues; a bucket flushes
   when ``max_batch`` requests wait (or on ``flush()``); every batch records
   occupancy, padding and wall time (:class:`BatchStats`).
+* **Array admission** — ``search()`` admits reads of one length (a 2-D
+  array, or equal 1-D arrays) as one :class:`RequestBlock` when nothing is
+  queued: one validation, one id range, one bucket, one clock reading.
+  Its chunks go through the same ``_assemble`` / ``_execute`` /
+  ``_finalize`` as queued requests (slice copies in, one ``nonzero`` out)
+  and come straight back in order; ``serving.array_requests`` counts the
+  reads admitted so. Ragged reads, a non-empty queue or caller-supplied
+  ids take ``submit`` + ``flush``.
 * **Snapshot-backed startup** — :meth:`GeneSearchService.from_snapshot`.
 * **Hot swap** — :meth:`GeneSearchService.swap_state` replaces the served
   state and bumps the version every :class:`SearchResult` carries.
@@ -36,8 +44,10 @@ Port of :mod:`repro.serving.service` for all four engines.
   bucket's queue going non-empty to the flush; queueing under the
   scheduler), ``wait`` (``_finalize``'s ``.cpu()``: the device and the
   copy back) and ``decode`` (the copy's return to the batch's results
-  stored), which split the ``finalize`` span, and ``obs`` (the batch's
-  counters, stage observations and request spans).
+  decoded), which split the ``finalize`` span, and ``obs`` (the batch's
+  counters, stage observations and request spans). On the array path
+  ``admit`` runs from ``search()``'s entry (or the last chunk's end) to
+  the chunk's flush.
 
 The default backend is ``"idl_probe"``: per served bucket batch on a CUDA
 index, one kernel launch (``gather_planned_rows`` for the bit-sliced index,
@@ -125,6 +135,43 @@ def normalize_request(request: Union[SearchRequest, np.ndarray], k: int
     if n_kmers < 1:
         raise ValueError(f"read of length {read.shape[0]} has no {k}-mers")
     return SearchRequest(read=read, request_id=request.request_id), n_kmers
+
+
+class RequestBlock:
+    """Reads of one length admitted as arrays (``search()``'s array path):
+    ``reads`` ``(n, L)`` uint8, ``ids`` a ``range`` of request ids, one
+    ``n_kmers``, the trace ids minted at admission (None with the tracer
+    off) and the admission time ``t_enq``. A batch's ``take`` in the
+    pipeline's hooks: it has a length, iterates as the ``(SearchRequest,
+    n_kmers)`` pairs of the per-read path (built only when iterated), and
+    slices into chunks."""
+
+    __slots__ = ("reads", "ids", "n_kmers", "traces", "t_enq")
+
+    def __init__(self, reads: np.ndarray, ids: range, n_kmers: int,
+                 traces: Optional[List[str]], t_enq: float):
+        self.reads, self.ids, self.n_kmers = reads, ids, n_kmers
+        self.traces, self.t_enq = traces, t_enq
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __iter__(self):
+        for read, rid in zip(self.reads, self.ids):
+            yield SearchRequest(read=read, request_id=rid), self.n_kmers
+
+    def __getitem__(self, rows: slice) -> "RequestBlock":
+        return RequestBlock(
+            self.reads[rows], self.ids[rows], self.n_kmers,
+            None if self.traces is None else self.traces[rows], self.t_enq)
+
+
+def _columns(take) -> Tuple[Sequence[int], Sequence[int]]:
+    """The request ids and kmer counts of a batch's ``take``: a
+    :class:`RequestBlock`, or ``[(request, n_kmers), ...]`` pairs."""
+    if isinstance(take, RequestBlock):
+        return take.ids, [take.n_kmers] * len(take)
+    return [req.request_id for req, _ in take], [n_k for _, n_k in take]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,6 +284,8 @@ class GeneSearchService:
                   "service": next(_SERVICE_IDS)}
         reg = obs_metrics.DEFAULT
         self._obs_requests = reg.counter("serving.requests", **labels)
+        self._obs_array_requests = reg.counter("serving.array_requests",
+                                               **labels)
         self._obs_batches = reg.counter("serving.batches", **labels)
         self._obs_batch_rows = reg.counter("serving.batch_rows", **labels)
         self._obs_pad_rows = reg.counter("serving.pad_rows", **labels)
@@ -349,11 +398,52 @@ class GeneSearchService:
         self._inflight.discard(request_id)
         return out
 
-    def search(self, reads: Sequence[np.ndarray]) -> List[SearchResult]:
-        """Synchronous convenience: submit all, flush, return in order."""
-        ids = [self.submit(r) for r in reads]
-        self.flush()
-        return [self.result(i) for i in ids]
+    def search(self, reads: Union[np.ndarray, Sequence[np.ndarray]]
+               ) -> List[SearchResult]:
+        """Synchronous convenience: serve ``reads``, return their results
+        in order. Reads the array path takes (see :meth:`_admit_block`)
+        are served in chunks of ``max_batch`` straight from the block;
+        any others are submitted one by one and flushed."""
+        t_fill = obs_trace.now()
+        block = self._admit_block(reads, t_fill)
+        if block is None:
+            ids = [self.submit(r) for r in reads]
+            self.flush()
+            return [self.result(i) for i in ids]
+        bucket, rows = self.bucket_for(block.n_kmers), self.config.max_batch
+        results: List[SearchResult] = []
+        for start in range(0, len(block), rows):
+            done, t_fill = self._serve(block[start:start + rows], bucket,
+                                       t_fill)
+            results.extend(done)
+        return results
+
+    def _admit_block(self, reads, t_enq: float) -> Optional[RequestBlock]:
+        """Admit ``reads`` as one :class:`RequestBlock` when they allow it:
+        a 2-D array or a list / tuple of 1-D arrays, at least one read,
+        every read of one length with at least one kmer, and nothing
+        queued in any bucket. Else None, with nothing admitted."""
+        if any(self._pending.values()):
+            return None
+        if isinstance(reads, np.ndarray):
+            if reads.ndim != 2:
+                return None
+        elif (isinstance(reads, (list, tuple)) and reads
+              and all(isinstance(r, np.ndarray) and r.ndim == 1
+                      and r.shape == reads[0].shape for r in reads)):
+            reads = np.stack(reads)
+        else:
+            return None
+        n, n_kmers = reads.shape[0], reads.shape[1] - self._k + 1
+        if n == 0 or n_kmers < 1:
+            return None
+        ids = range(self._next_id, self._next_id + n)
+        self._next_id += n
+        trc = obs_trace.DEFAULT
+        traces = trc.mint_traces(n) if trc.enabled else None
+        self._obs_array_requests.inc(n)
+        return RequestBlock(np.asarray(reads, dtype=np.uint8), ids, n_kmers,
+                            traces, t_enq)
 
     # -- execution ----------------------------------------------------------
     def _runner(self, bucket: int):
@@ -478,18 +568,25 @@ class GeneSearchService:
     # thresholds) -> _execute (device) -> _finalize (host: decode).
 
     def _assemble(self, take, bucket: int):
-        """Pad ``take`` = [(request, n_kmers), ...] into the bucket's fixed
-        batch shape (host-side; no device work)."""
+        """Pad ``take`` (a :class:`RequestBlock` or [(request, n_kmers),
+        ...]) into the bucket's fixed batch shape (host-side; no device
+        work): a block's reads in one slice copy, queued reads (which may
+        differ in length) one by one."""
         rows, read_len = self.config.max_batch, bucket + self._k - 1
+        n = len(take)
+        n_k = np.asarray(_columns(take)[1])
         batch = np.zeros((rows, read_len), dtype=np.uint8)
-        valid = np.zeros((rows, bucket), dtype=bool)
-        need = np.zeros((rows,), dtype=np.int32)
-        for i, (req, n_k) in enumerate(take):
-            batch[i, :req.read.shape[0]] = req.read
-            valid[i, :n_k] = True
-            need[i] = query.coverage_need(self.config.theta, n_k)
-        for i in range(len(take), rows):       # pad rows replay row 0
-            batch[i], valid[i], need[i] = batch[0], valid[0], need[0]
+        if isinstance(take, RequestBlock):
+            batch[:n, :take.reads.shape[1]] = take.reads
+        else:
+            for i, (req, _) in enumerate(take):
+                batch[i, :req.read.shape[0]] = req.read
+        valid = np.empty((rows, bucket), dtype=bool)
+        need = np.empty((rows,), dtype=np.int32)
+        valid[:n] = np.arange(bucket) < n_k[:, None]
+        need[:n] = query.coverage_need(self.config.theta, n_k)
+        # pad rows replay row 0
+        batch[n:], valid[n:], need[n:] = batch[0], valid[0], need[0]
         return batch, valid, need
 
     def _execute(self, bucket: int, batch, valid, need) -> torch.Tensor:
@@ -513,20 +610,26 @@ class GeneSearchService:
         return out
 
     def _finalize(self, take, bucket: int, out) -> List[SearchResult]:
-        """Copy the verdicts to the host and decode per-request results."""
+        """Copy the verdicts to the host and decode per-request results:
+        one ``flatnonzero`` over the batch's rows, split by row;
+        ``matches`` is the request's row of the host verdicts."""
         out = self._wait(out)
-        single_set = self._state.meta.engine == "bloom"
-        results = []
-        for i, (req, n_k) in enumerate(take):
-            row = out[i]
-            if single_set:
-                fids = (0,) if bool(row) else ()
-            else:
-                fids = tuple(int(f) for f in np.nonzero(row)[0])
-            results.append(SearchResult(
-                request_id=req.request_id, matches=row, file_ids=fids,
-                n_kmers=n_k, bucket=bucket, version=self._version))
-        return results
+        ids, n_kmers = _columns(take)
+        n = len(ids)
+        hits = out[:n]
+        if self._state.meta.engine == "bloom":    # one set: a bool a row
+            fids = [(0,) if hit else () for hit in hits.tolist()]
+        else:
+            # the flat form: a 2-D nonzero costs ten times as much
+            flat, width = np.flatnonzero(hits), hits.shape[1]
+            ends = np.searchsorted(flat, np.arange(n + 1) * width).tolist()
+            col = (flat % width).tolist()
+            fids = [tuple(col[a:b]) for a, b in zip(ends, ends[1:])]
+        version = self._version
+        # positional: (request_id, matches, file_ids, n_kmers, bucket,
+        # version), a third cheaper than by keyword
+        return [SearchResult(rid, m, f, n_k, bucket, version)
+                for rid, m, f, n_k in zip(ids, hits, fids, n_kmers)]
 
     def _flush_bucket(self, bucket: int) -> None:
         queue = self._pending.get(bucket, [])
@@ -534,33 +637,43 @@ class GeneSearchService:
             queue[:self.config.max_batch], queue[self.config.max_batch:]
         if not take:
             return
+        results, t_obs = self._serve(take, bucket,
+                                     self._filling.pop(bucket, None))
+        for res in results:
+            self._results[res.request_id] = res
+        if self._pending[bucket]:         # the rest starts the next batch
+            self._filling[bucket] = t_obs
+
+    def _serve(self, take, bucket: int, t_fill: Optional[float]
+               ) -> Tuple[List[SearchResult], float]:
+        """Run one batch through the pipeline and its accounting: its
+        results, and the end of its ``obs`` stage. ``t_fill`` starts its
+        ``admit`` stage (None: the flush itself)."""
         t0 = obs_trace.now()
-        t_fill = self._filling.pop(bucket, t0)
         batch, valid, need = self._assemble(take, bucket)
         t_asm = obs_trace.now()
         out = self._execute(bucket, batch, valid, need)
         t_exec = self._t_copied = obs_trace.now()
-        for res in self._finalize(take, bucket, out):
-            self._results[res.request_id] = res
+        results = self._finalize(take, bucket, out)
         t_done = obs_trace.now()
-        self._record_stages(t_fill, t0, t_exec, t_done)
+        self._record_stages(t0 if t_fill is None else t_fill, t0, t_exec,
+                            t_done)
+        rows = self.config.max_batch
         self._record_batch(BatchStats(
-            bucket=bucket, n_requests=len(take),
-            batch_rows=self.config.max_batch,
-            pad_rows=self.config.max_batch - len(take),
-            pad_kmers=self.config.max_batch * bucket
-            - sum(n_k for _, n_k in take),
+            bucket=bucket, n_requests=len(take), batch_rows=rows,
+            pad_rows=rows - len(take),
+            pad_kmers=rows * bucket - sum(_columns(take)[1]),
             wall_ms=(t_done - t0) * 1e3))
-        entries = []
-        for req, _ in take:
-            ctx, t_enq = self._admitted.pop(req.request_id, (None, t0))
-            entries.append((ctx, t_enq, req.request_id))
+        if isinstance(take, RequestBlock):
+            entries = [((tid, None), take.t_enq, rid)
+                       for tid, rid in zip(take.traces or (), take.ids)]
+        else:
+            entries = [(*self._admitted.pop(req.request_id, (None, t0)),
+                        req.request_id) for req, _ in take]
         emit_request_spans(entries, bucket=bucket, t0=t0, t_asm=t_asm,
                            t_exec=t_exec, t_done=t_done,
                            version=self._version)
-        t_obs = self._stages.lap("obs", t_done)
-        if self._pending[bucket]:         # the rest starts the next batch
-            self._filling[bucket] = t_obs
+        return results, self._stages.lap("obs", t_done)
 
     # -- observability ------------------------------------------------------
     def _record_stages(self, t_fill: float, t0: float, t_exec: float,

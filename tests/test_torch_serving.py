@@ -2,6 +2,7 @@
 carried across, the serving front end, the launcher, and the port's
 independence from JAX. Every comparison is exact."""
 
+import dataclasses
 import json
 import os
 import pkgutil
@@ -290,6 +291,171 @@ def test_build_archive_times_its_stages(built, monkeypatch):
     assert len(sent) > 1 and set(sent) == {16}
     assert deltas["insert"][0] == deltas["batch"][0] == len(sent)
     assert deltas["window"][0] == len(files)
+
+
+# -- search()'s array path against submit + flush ------------------------------
+
+def _one_length_reads(built, n, seed):
+    """``(n, read_len)`` uint8 reads: cut from indexed genomes, every third
+    one random."""
+    cfg, archive, _, _ = built
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i % 3 == 2:
+            out.append(rng.integers(0, 4, size=cfg.read_len, dtype=np.uint8))
+        else:
+            g = archive[int(rng.integers(0, len(archive)))].genome
+            s = int(rng.integers(0, len(g) - cfg.read_len))
+            out.append(np.asarray(g[s:s + cfg.read_len], dtype=np.uint8))
+    return np.stack(out)
+
+
+def _counter_deltas(before, after, prefix="serving."):
+    """``{name: delta}`` of the registry's counters under ``prefix``,
+    summed over their series, the ones that moved."""
+    out = {}
+    for name, series in after["counters"].items():
+        if not name.startswith(prefix):
+            continue
+        old = before["counters"].get(name, {})
+        d = sum(v - old.get(lk, 0.0) for lk, v in series.items())
+        if d:
+            out[name] = d
+    return out
+
+
+def _per_read(svc, reads):
+    """The per-read path: ``submit`` each read, ``flush``, the results."""
+    ids = [svc.submit(r) for r in reads]
+    svc.flush()
+    return [svc.result(i) for i in ids]
+
+
+def _served(svc, serve):
+    """``serve()``'s results, with the ``serving.*`` counters' deltas, the
+    stage observations' counts, the batch stats without their wall time
+    and the tracer's records, all of that call alone."""
+    obs_trace.DEFAULT.clear()
+    before = obs_metrics.DEFAULT.snapshot()
+    results = serve()
+    after = obs_metrics.DEFAULT.snapshot()
+    stages = {s: c for s, (c, _) in _stage_deltas(before, after).items()}
+    stats = [dataclasses.replace(b, wall_ms=0.0) for b in svc.batch_stats]
+    return (results, _counter_deltas(before, after), stages, stats,
+            list(obs_trace.DEFAULT._ring))
+
+
+def _assert_same_results(got, want, same_ids=True):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for f in dataclasses.fields(service.SearchResult):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if f.name == "matches":
+                np.testing.assert_array_equal(x, y)
+                assert x.dtype == y.dtype and x.flags.writeable
+            elif f.name != "request_id" or same_ids:
+                assert x == y and type(x) is type(y), f.name
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.8])
+@pytest.mark.parametrize("n", [1, 3, 4, 10])   # max_batch 4: 1, <, =, 2.5x
+def test_array_search_matches_the_per_read_path(built, n, theta):
+    reads = _one_length_reads(built, n, seed=n)
+    cfg = service.ServiceConfig(theta=theta, max_batch=4)
+    arr_svc = service.GeneSearchService(built[3], cfg)
+    one_svc = service.GeneSearchService(built[3], cfg)
+    got, got_c, got_st, got_bs, got_ring = _served(
+        arr_svc, lambda: arr_svc.search(reads))
+    want, want_c, want_st, want_bs, want_ring = _served(
+        one_svc, lambda: _per_read(one_svc, reads))
+    _assert_same_results(got, want)
+    assert [r.request_id for r in got] == list(range(n))
+    np.testing.assert_array_equal(                 # the engine's own msmt
+        np.stack([r.matches for r in got]),
+        built[3].msmt(reads, theta=theta).numpy())
+    assert got_bs == want_bs and len(got_bs) == -(-n // 4)
+    assert got_c.pop("serving.array_requests") == n
+    assert "serving.array_requests" not in want_c
+    assert got_c == want_c and got_c["serving.requests"] == n
+    assert got_st == want_st == {s: len(got_bs) for s in STAGES}
+    # one request chain a read, each under its own trace id, and the ring
+    # ending in the last batch's stages
+    assert [r[3] for r in got_ring] == [r[3] for r in want_ring]
+    roots = [r for r in got_ring if r[3] == "request"]
+    assert sorted(dict(r[8])["rid"] for r in roots) == list(range(n))
+    assert len({r[0] for r in roots}) == n
+    assert [r[3] for r in got_ring[-3:]] == ["assemble", "execute",
+                                             "finalize"]
+
+
+@pytest.mark.parametrize("case", ["ragged", "pending", "own_ids"])
+def test_array_path_stays_off(built, case):
+    """Ragged reads, reads queued by ``submit()`` and caller-supplied ids
+    take the per-read path: ``serving.array_requests`` does not move."""
+    teng = built[3]
+    reads = list(_one_length_reads(built, 6, seed=7))
+    svc = service.GeneSearchService(teng, service.ServiceConfig(max_batch=4))
+    before = obs_metrics.DEFAULT.snapshot()
+    if case == "ragged":
+        reads[2] = reads[2][:60]
+        got = svc.search(reads)
+        assert [r.request_id for r in got] == list(range(6))
+    elif case == "pending":
+        first = svc.submit(reads[0])
+        rest = svc.search(np.stack(reads[1:]))
+        got = [svc.result(first)] + rest
+        assert [r.request_id for r in got] == list(range(6))
+        assert svc.batch_stats[0].n_requests == 4      # served first
+    else:
+        got = svc.search([service.SearchRequest(read=r, request_id=100 + i)
+                          for i, r in enumerate(reads)])
+        assert [r.request_id for r in got] == list(range(100, 106))
+    deltas = _counter_deltas(before, obs_metrics.DEFAULT.snapshot())
+    assert "serving.array_requests" not in deltas
+    assert deltas["serving.requests"] == 6
+    for read, res in zip(reads, got):
+        np.testing.assert_array_equal(teng.msmt(read[None]).numpy()[0],
+                                      res.matches)
+
+
+@pytest.mark.parametrize("kind", ["live", "shard"])
+def test_subclassed_services_answer_alike_either_way(built, kind):
+    """``LiveGeneSearchService`` (a written delta: its ``delta_seq``) and a
+    row-probe ``ShardSearchService`` give the same results to ``search``
+    of an array as to ``submit`` + ``flush``."""
+    from repro_torch.index import lsm, shards
+    from repro_torch.serving.live import LiveGeneSearchService
+    from repro_torch.serving.scatter import ShardSearchService
+
+    cfg, archive, _, teng = built
+    conf = service.ServiceConfig(max_batch=4)
+    reads = np.concatenate([_one_length_reads(built, 5, seed=9),
+                            archive[40].reads(cfg.read_len, 2)])
+    if kind == "live":
+        base = engines.BitSlicedIndex.build(cfg.idl_config(), cfg.scheme,
+                                            cfg.n_files, device="cpu")
+        base = ingest.build_archive(base, archive[:32],
+                                    read_len=cfg.read_len, chunk_reads=16)
+        live = lsm.LiveIndex(base)
+        live.insert(archive[40].reads(cfg.read_len, 4), np.full(4, 40))
+
+        def make():
+            return LiveGeneSearchService(live, conf)
+    else:
+        spec, parts = shards.partition_state(teng, 2)
+        assert spec.row_probe
+
+        def make():
+            return ShardSearchService(spec, 1, parts[1], conf)
+    arr_svc, one_svc = make(), make()
+    got = arr_svc.search(reads)
+    want = _per_read(one_svc, reads)
+    _assert_same_results(got, want)
+    assert arr_svc.requests_served() == one_svc.requests_served() == 7
+    if kind == "live":
+        assert {r.delta_seq for r in got} == {1}
+        assert all(40 in r.file_ids for r in got[-2:])
 
 
 def _run(module, args, pythonpath):
