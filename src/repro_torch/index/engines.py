@@ -33,6 +33,8 @@ import torch
 from repro_torch.core import hashing, idl as idl_mod
 from repro_torch.index import ingest, packed, query, registry
 from repro_torch.index import state as state_mod
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 
 class _StateView:
@@ -388,14 +390,18 @@ class RamboIndex(_StateView):
                     dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, n_files) bool: the file's bucket hit in all R
         repetitions (an AND accumulated over R, never a (B, n_k, R, N)
-        intermediate)."""
+        intermediate). The merge's host time, its R gathers and R - 1 ANDs
+        enqueued with no wait, is ``planner.stage_ms{op=query,
+        stage=merge}``."""
         grid = self.query_grid(reads, backend=backend, dedup=dedup,
                                mesh=mesh)
+        t0 = obs_trace.now()
         assign = torch.as_tensor(self.assignment, dtype=torch.int64,
                                  device=grid.device)
         out = grid[:, :, 0, assign[0]]
         for r in range(1, self.n_rep):
             out &= grid[:, :, r, assign[r]]
+        query.record_stage("query", "merge", t0)
         return out
 
     def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
@@ -413,11 +419,21 @@ _TRANSPOSED = "_rambo_words_t"
 
 def transposed_words(words: torch.Tensor) -> torch.Tensor:
     """The contiguous transpose of a RAMBO words tensor (or a word shard of
-    it), made once and kept on the tensor until :func:`_drop_transposed`."""
+    it), made once and kept on the tensor until :func:`_drop_transposed`.
+    Each copy made counts in ``index.transposed_copies`` and its bytes in
+    ``index.transposed_bytes`` (``engine=rambo``); its host time, the copy
+    enqueued with no wait, is ``planner.stage_ms{op=query,
+    stage=transpose}``."""
     cached = getattr(words, _TRANSPOSED, None)
     if cached is None:
+        t0 = obs_trace.now()
         cached = words.t().contiguous()
+        query.record_stage("query", "transpose", t0)
         setattr(words, _TRANSPOSED, cached)
+        reg = obs_metrics.DEFAULT
+        reg.counter("index.transposed_copies", engine="rambo").inc()
+        reg.counter("index.transposed_bytes", engine="rambo").inc(
+            cached.nbytes)
     return cached
 
 

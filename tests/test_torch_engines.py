@@ -234,6 +234,73 @@ def test_rambo_query_insert_query_sees_the_new_file():
             np.asarray(jeng.query_grid(jnp.asarray(reads))))
 
 
+def _rambo_obs():
+    """``{"merge": n, "transpose": n}`` query stage samples and ``(copies,
+    bytes)`` transposed copies the port's registry holds so far."""
+    snap = t_metrics.DEFAULT.snapshot()
+    stages = {"merge": 0, "transpose": 0}
+    for lk, h in snap["hists"].get("planner.stage_ms", {}).items():
+        labels = t_metrics.parse_label_key(lk)
+        if labels.get("op") == "query" and labels["stage"] in stages:
+            stages[labels["stage"]] += h["count"]
+    where = {"engine": "rambo"}
+    return stages, tuple(t_metrics.counter_total(snap, name, where)
+                         for name in ("index.transposed_copies",
+                                      "index.transposed_bytes"))
+
+
+@pytest.mark.parametrize("backend", query.BACKENDS)
+def test_rambo_query_batch_records_one_merge_a_call(backend):
+    g = _genomes("rambo")
+    teng = _built("rambo", "idl", None)[1]["idl_insert"]
+    for n_calls in (1, 2, 3):
+        before, _ = _rambo_obs()
+        for _ in range(n_calls):
+            teng.query_batch(g[:, 20:250], backend=backend)
+        after, _ = _rambo_obs()
+        assert after["merge"] - before["merge"] == n_calls
+
+
+def test_transposed_copy_counted_once_per_words_tensor():
+    """One copy a words tensor, counted with its bytes and its transpose
+    stage; none on a second query; one more after an insert drops it."""
+    g = _genomes("rambo")
+    reads = g[:, 50:280]
+    _, teng = _empty("rambo", "idl")
+    teng = teng.insert_batch(g[:-1], np.arange(N_RAMBO - 1))
+    nbytes = teng.words.nbytes
+    stages0, (copies0, bytes0) = _rambo_obs()
+    teng.msmt(reads)
+    stages1, (copies1, bytes1) = _rambo_obs()
+    assert (copies1 - copies0, bytes1 - bytes0) == (1, nbytes)
+    assert stages1["transpose"] - stages0["transpose"] == 1
+    teng.msmt(reads)
+    teng.query_batch(reads)
+    stages2, (copies2, bytes2) = _rambo_obs()
+    assert (copies2, bytes2) == (copies1, bytes1)
+    assert stages2["transpose"] == stages1["transpose"]
+    teng = teng.insert_batch(g[-1:], [N_RAMBO - 1])
+    _, (copies3, _) = _rambo_obs()
+    assert copies3 == copies2
+    teng.msmt(reads)
+    stages4, (copies4, bytes4) = _rambo_obs()
+    assert (copies4 - copies3, bytes4 - bytes2) == (1, nbytes)
+    assert stages4["transpose"] - stages2["transpose"] == 1
+
+
+def test_bitsliced_query_records_no_merge_or_transpose():
+    _, tc = _cfgs()
+    g = _genomes("rambo")
+    eng = engines.BitSlicedIndex.build(tc, n_files=N_RAMBO, device="cpu")
+    eng = eng.insert_batch(g, np.arange(N_RAMBO))
+    before = _rambo_obs()
+    svc = service.GeneSearchService(eng, service.ServiceConfig(max_batch=4))
+    svc.search(g[:, 20:250])
+    for backend in query.BACKENDS:
+        eng.msmt(g[:, 20:250], backend=backend)
+    assert _rambo_obs() == before
+
+
 def test_every_engine_is_a_gene_index():
     jc, tc = _cfgs()
     bloom = engines.PackedBloomIndex.build(tc, device="cpu")

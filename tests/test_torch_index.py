@@ -266,7 +266,8 @@ def test_insert_donate_false_keeps_input(rng):
 
 
 @pytest.mark.parametrize("op", ["query", "insert"])
-def test_planned_backends_record_locality_and_stage_times(rng, op):
+def test_planned_backends_record_locality_and_stage_times(rng, op,
+                                                          monkeypatch):
     from repro.obs import metrics as j_metrics
     from repro_torch.obs import metrics as t_metrics
 
@@ -276,7 +277,10 @@ def test_planned_backends_record_locality_and_stage_times(rng, op):
     words = _words(rng, *shape, density=0.3)
     mat = torch.from_numpy(words.view(np.int32).copy())
     j_metrics.reset()
-    t_metrics.reset()
+    # a registry of its own: no series another test bound in this process
+    monkeypatch.setattr(t_metrics, "DEFAULT", t_metrics.Registry())
+    monkeypatch.setattr(query, "_STAGE_TIMERS", {})
+    monkeypatch.setattr(query, "_LOCALITY_HANDLES", {})
     if op == "query":
         jp = j_query.plan_query(jc, "idl", reads.shape, shape,
                                 bit_probe=False, lane32=True)
