@@ -41,7 +41,11 @@ reference package) and runs these phases, printing one line each:
    ``idl_locations64`` (at the flat filter's) at (256, 230) and (512, 230)
    read batches, ``idl`` DOPH and exact with align on and off and ``rh``,
    and over one 4.6 Mbase genome row (64-bit), the plain version's kernel
-   count under ``torch.profiler`` beside the fused kernel's one. Each
+   count under ``torch.profiler`` beside the fused kernel's one; 2h
+   RAMBO's fused merge and coverage count ``rambo_merge_coverage`` at one
+   256-read serve batch's answers ((256, 200, 320) int32 to (256, 1024)
+   verdicts, B 32, R 10) and at a few other shapes, beside the ATen chain
+   it replaced. Each
    main-shape kernel is timed with CUDA events and by CUDA-graph replay
    (the probe kernels and the gathers' library call also with the L2
    flushed before each call) beside its plain version, its bound (bytes,
@@ -657,6 +661,7 @@ def _counters():
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
     from repro_torch.kernels.idl_locations import kernel as loc_kernel
     from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.rambo_merge import kernel as merge_kernel
     from repro_torch.kernels.window_min import kernel as wm_kernel
 
     return [(probe_kernel.NAME, probe_kernel, "launches"),
@@ -666,7 +671,8 @@ def _counters():
             (loc_kernel.NAME64, loc_kernel, "launches64"),
             (probe_kernel.BITS_NAME, probe_kernel, "bits_launches"),
             (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches"),
-            (probe_kernel.BIT_MODE_NAME, probe_kernel, "bit_mode_launches")]
+            (probe_kernel.BIT_MODE_NAME, probe_kernel, "bit_mode_launches"),
+            (merge_kernel.NAME, merge_kernel, "launches")]
 
 
 def reset_launches() -> None:
@@ -1603,6 +1609,115 @@ def wide_kernels_phase(cfg, archive, dev) -> list:
           f"{c_read.size} distinct rows): {json.dumps(t_cobs)}, bound "
           f"{1e3 * c_bytes / HBM_BYTES_PER_S:.6f} ms ({c_bytes} B), "
           f"index_select {json.dumps(t_cobs_lib)}")
+    return [record]
+
+
+RAMBO_FILES, RAMBO_BUCKETS, RAMBO_REPS = 1024, 32, 10   # the serve cell's
+SERVE_KMERS = 200                                      # 230-base reads
+
+
+def rambo_merge_phase(dev) -> list:
+    """Phase 2h: ``rambo_merge_coverage`` at one 256-read RAMBO serve
+    batch's answers ((256, 200, 320) int32 {0, 1}, B 32, R 10, 1024 files,
+    every kmer valid and a per-row need, as the service passes them) and at
+    a few other shapes, against its plain version on the card and on the
+    CPU (tolerance 0); timed by events, graph replay and with the L2 cold,
+    beside its byte bound (the answers read once, the verdicts written
+    once), the plain version and the ATen chain it replaced on the serve
+    path (the index's gathers and ANDs, then ``member_coverage``). Returns
+    its JSON record."""
+    from repro_torch.index import engines, query
+    from repro_torch.kernels.rambo_merge import kernel as merge_kernel
+    from repro_torch.kernels.rambo_merge import ref as merge_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = functools.partial(scratch.fill_, 0)
+
+    def operands(n_reads, n_k, n_rep, n_buckets, n_files):
+        width = n_rep * n_buckets
+        ans = (torch.rand((n_reads, n_k, width), generator=gen, device=dev)
+               < 0.8 ** (1 / n_rep)).to(torch.int32)
+        asn = torch.as_tensor(engines.rambo_assignment(
+            n_files, n_buckets, n_rep), device=dev)
+        cols = (torch.arange(n_rep, device=dev) * n_buckets
+                + asn[:, torch.arange(n_reads, device=dev) % n_files].T)
+        ans[torch.arange(n_reads, device=dev)[:, None], :, cols] = 1
+        return ans, asn
+
+    # shapes: the serve batch; ragged kmers, buckets and tiles; many buckets
+    for shape in ((256, SERVE_KMERS, RAMBO_REPS, RAMBO_BUCKETS, RAMBO_FILES),
+                  (5, 231, 2, 20, 67), (4, 600, 3, 40, 150),
+                  (3, 33, 4, 1344, 1500)):
+        ans, asn = operands(*shape)
+        valid = torch.rand(shape[:2], generator=gen, device=dev) < 0.9
+        need = (valid.sum(1) * 4 // 5).to(torch.int32)
+        for c_need, c_valid in ((shape[1], None), (need, valid)):
+            got = merge_kernel.merge_coverage(ans, asn, c_need, c_valid)
+            want = merge_ref.merge_coverage_ref(ans, asn, c_need, c_valid)
+            cpu = merge_ref.merge_coverage_ref(
+                ans.cpu(), asn.cpu(), c_need.cpu() if isinstance(
+                    c_need, torch.Tensor) else c_need,
+                None if c_valid is None else c_valid.cpu())
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(got.cpu(), cpu),
+                  f"rambo_merge_coverage == plain at {shape}")
+
+    shape = (SERVE_BATCH, SERVE_KMERS, RAMBO_REPS, RAMBO_BUCKETS,
+             RAMBO_FILES)
+    ans, asn = operands(*shape)
+    valid = torch.ones(shape[:2], dtype=torch.bool, device=dev)
+    need = torch.full((SERVE_BATCH,), SERVE_KMERS, dtype=torch.int32,
+                      device=dev)
+    assign_np = engines.rambo_assignment(RAMBO_FILES, RAMBO_BUCKETS,
+                                         RAMBO_REPS)
+
+    def kernel():
+        return merge_kernel.merge_coverage(ans, asn, need, valid)
+
+    def plain():
+        return merge_ref.merge_coverage_ref(ans, asn, need, valid)
+
+    def chain():
+        grid = (ans == 1).reshape(shape[0], shape[1], RAMBO_REPS,
+                                  RAMBO_BUCKETS)
+        a = torch.as_tensor(assign_np, dtype=torch.int64, device=dev)
+        member = grid[:, :, 0, a[0]]
+        for r in range(1, RAMBO_REPS):
+            member &= grid[:, :, r, a[r]]
+        return query.member_coverage(member, 1.0, valid=valid, need=need)
+
+    got, want, old = kernel(), plain(), chain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
+    check(err == 0 and torch.equal(got, old) and 0 < int(got.sum()),
+          "rambo_merge_coverage == plain == the ATen chain at the serve batch")
+    n_bytes = (ans.nbytes + got.nbytes + asn.nbytes + valid.nbytes
+               + need.nbytes)
+    t_kernel = timed(kernel, flush)
+    # the chain copies the assignment to the card a call: no graph capture
+    t_chain = {"ms": cuda_ms(chain, 20)}
+    record = {
+        "name": merge_kernel.NAME, "route": "cuda",
+        "source": merge_kernel.SOURCE, "replaces": merge_kernel.REPLACES,
+        "max_abs_err": err, "ms": t_kernel["ms"],
+        "plain_ms": cuda_ms(plain, 5),
+        "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": t_chain["ms"],
+    }
+    GRAPH_MS[merge_kernel.NAME] = t_kernel["graph_ms"]
+    GRAPH_MS[merge_kernel.NAME + " (L2 cold)"] = t_kernel["cold_ms"]
+    del ans, asn, scratch, flush
+    torch.cuda.empty_cache()
+    print(f"phase 2h RAMBO merge: ok (kernel == plain == the ATen chain, "
+          f"tolerance 0: bit-exact; {int(got.sum())} of {got.numel()} "
+          f"verdicts true) — at the serve batch {shape[:2]} x "
+          f"{RAMBO_REPS * RAMBO_BUCKETS} int32 answers to {tuple(got.shape)} "
+          f"verdicts: kernel {json.dumps(t_kernel)}, bound "
+          f"{record['bound_ms']:.6f} ms ({n_bytes} B), plain "
+          f"{record['plain_ms']:.6f} ms, the ATen chain "
+          f"{json.dumps(t_chain)}; ragged kmers (231, 600: three chunks), "
+          f"20 / 40 / 1344 buckets, 67 / 150 / 1500 files == plain")
     return [record]
 
 
@@ -4661,6 +4776,7 @@ def main() -> None:
     kernels += flat_kernels_phase(fcfg, g, dev)
     engine_archive = log_uniform_archive(cfg.n_files, ARCHIVE_SEED)
     kernels += wide_kernels_phase(cfg, engine_archive, dev)
+    kernels += rambo_merge_phase(dev)
     torch.cuda.empty_cache()
     launches, full_eng = main_path_phase(cfg, archive, dev)
     paths = [launches]

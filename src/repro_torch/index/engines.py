@@ -25,6 +25,7 @@ copy). Every engine is a view over an :class:`IndexState` (``.state``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch
 from repro_torch.core import hashing, idl as idl_mod
 from repro_torch.index import ingest, packed, query, registry
 from repro_torch.index import state as state_mod
+from repro_torch.kernels.rambo_merge import kernel as merge_kernel
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -298,8 +300,11 @@ def rambo_dimensions(n_files: int, B: Optional[int] = None,
     return B, R
 
 
+@functools.lru_cache(maxsize=64)
 def rambo_assignment(n_files: int, n_buckets: int, n_rep: int) -> np.ndarray:
-    """(R, N) int32 file -> bucket map (the query path's hash family)."""
+    """(R, N) int32 file -> bucket map (the query path's hash family).
+    Made once a shape and shared by every caller, which reads it only: an
+    engine view is rebuilt from its state on every served batch."""
     files = np.arange(n_files, dtype=np.uint64)
     return np.stack([
         hashing.np_hash_to_range(files, 0xA3B0 + r, n_buckets).astype(np.int32)
@@ -370,19 +375,25 @@ class RamboIndex(_StateView):
             state_mod.mark_consumed(self)
         return dataclasses.replace(self, words=words)
 
-    def query_grid(self, reads, *, backend: str = "idl_probe",
-                   dedup: bool = False, mesh=None) -> torch.Tensor:
-        """(B, n_kmers, R, buckets) bool: bucket hits per kmer. The R·B
-        filters are probed as one transposed ``(m/32, R·B)`` bit matrix:
-        each location resolves every bucket's bit from one row."""
+    def _probe(self, reads, backend: str, dedup: bool, mesh
+               ) -> torch.Tensor:
+        """(B, n_kmers, R·B) int32 {0, 1}: every bucket filter's answer per
+        kmer. The R·B filters are probed as one transposed ``(m/32, R·B)``
+        bit matrix: each location resolves every bucket's bit from one
+        row."""
         state_mod.ensure_live(self, what="engine")
         reads = query.as_reads(reads, self.words.device)
         plan = query.plan_query(
             self.cfg, self.scheme, tuple(reads.shape),
             (self.cfg.m // 32, self.n_rep * self.n_buckets), bit_probe=True,
             device=self.words.device)
-        vals = plan.execute(self._words_t, reads, backend=backend,
-                            dedup=dedup, mesh=mesh)     # (B, n_k, R·B) {0, 1}
+        return plan.execute(self._words_t, reads, backend=backend,
+                            dedup=dedup, mesh=mesh)
+
+    def query_grid(self, reads, *, backend: str = "idl_probe",
+                   dedup: bool = False, mesh=None) -> torch.Tensor:
+        """(B, n_kmers, R, buckets) bool: bucket hits per kmer."""
+        vals = self._probe(reads, backend, dedup, mesh)
         return (vals == 1).reshape(vals.shape[:2]
                                    + (self.n_rep, self.n_buckets))
 
@@ -390,31 +401,96 @@ class RamboIndex(_StateView):
                     dedup: bool = False, mesh=None) -> torch.Tensor:
         """(B, n_kmers, n_files) bool: the file's bucket hit in all R
         repetitions (an AND accumulated over R, never a (B, n_k, R, N)
-        intermediate). The merge's host time, its R gathers and R - 1 ANDs
-        enqueued with no wait, is ``planner.stage_ms{op=query,
-        stage=merge}``."""
+        intermediate), for the callers that need per-kmer hits (the
+        membership cache, shards, the LSM and live indexes). The merge's
+        host time, its R gathers and R - 1 ANDs enqueued with no wait, is
+        ``planner.stage_ms{op=query, stage=merge}``; each call counts in
+        ``index.rambo_merges{path=per_kmer}``."""
         grid = self.query_grid(reads, backend=backend, dedup=dedup,
                                mesh=mesh)
         t0 = obs_trace.now()
-        assign = torch.as_tensor(self.assignment, dtype=torch.int64,
-                                 device=grid.device)
+        assign = self._assign_on_device.to(torch.int64)
         out = grid[:, :, 0, assign[0]]
         for r in range(1, self.n_rep):
             out &= grid[:, :, r, assign[r]]
         query.record_stage("query", "merge", t0)
+        _count_merge("per_kmer")
+        return out
+
+    def coverage_batch(self, reads, theta: float = 1.0, *, valid=None,
+                       need=None, backend: str = "idl_probe",
+                       dedup: bool = False, mesh=None) -> torch.Tensor:
+        """(B, n_files) bool: whether each file's kmer hits (a hit in all R
+        repetitions) reach ``need`` (B,) per row, or ``theta``'s
+        :func:`~repro_torch.index.query.coverage_need` of the kmer axis;
+        ``valid`` (B, n_kmers) bool excludes padding kmers. The same
+        verdicts as :func:`~repro_torch.index.query.member_coverage` over
+        :meth:`query_batch`, with the merge and the count in one launch of
+        ``rambo_merge_coverage`` on the probe's answers (its plain version
+        on a CPU index). The launch's host time is ``planner.stage_ms{op=
+        query, stage=merge}``; each call counts in
+        ``index.rambo_merges{path=fused}``."""
+        vals = self._probe(reads, backend, dedup, mesh)
+        t0 = obs_trace.now()
+        if need is None:
+            need = query.coverage_need(theta, vals.shape[1])
+        else:
+            need = torch.as_tensor(need, dtype=torch.int32,
+                                   device=vals.device)
+        if valid is not None:
+            valid = torch.as_tensor(valid, dtype=torch.bool,
+                                    device=vals.device)
+        out = merge_kernel.merge_coverage(vals, self._assign_on_device, need,
+                                          valid)
+        query.record_stage("query", "merge", t0)
+        _count_merge("fused")
         return out
 
     def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
         """(B, n_files) bool: per-file kmer coverage >= theta."""
-        return query.member_coverage(self.query_batch(reads, **kw), theta)
+        return self.coverage_batch(reads, theta, **kw)
+
+    @property
+    def _assign_on_device(self) -> torch.Tensor:
+        """The (R, N) int32 assignment on the words' device, moved there
+        once and kept on the words tensor, as the transposed copy is (an
+        index view is rebuilt from its state every served batch)."""
+        cached = getattr(self.words, _ASSIGNED, None)
+        if cached is None or cached[0] is not self.assignment:
+            a = np.asarray(self.assignment)
+            if a.shape != (self.n_rep, self.n_files) or (
+                    a.size and not 0 <= a.min() <= a.max() < self.n_buckets):
+                raise ValueError(
+                    f"RAMBO assignment must map ({self.n_rep}, "
+                    f"{self.n_files}) to buckets [0, {self.n_buckets})")
+            cached = (self.assignment, torch.as_tensor(
+                a, dtype=torch.int32, device=self.words.device).contiguous())
+            setattr(self.words, _ASSIGNED, cached)
+        return cached[1]
 
     @property
     def total_bits(self) -> int:
         return int(self.words.shape[0]) * int(self.words.shape[1]) * 32
 
 
-# the attribute of a RAMBO words tensor that holds its transposed copy
+# the attributes of a RAMBO words tensor that hold its transposed copy and
+# its index's assignment on the device
 _TRANSPOSED = "_rambo_words_t"
+_ASSIGNED = "_rambo_assignment"
+
+
+def _count_merge(path: str) -> None:
+    """Count one merged batch in ``index.rambo_merges{path=...}``: ``fused``
+    (:meth:`RamboIndex.coverage_batch`) or ``per_kmer``
+    (:meth:`RamboIndex.query_batch`)."""
+    counter = _MERGES.get(path)
+    if counter is None:
+        counter = _MERGES[path] = obs_metrics.DEFAULT.counter(
+            "index.rambo_merges", path=path)
+    counter.inc()
+
+
+_MERGES: dict = {}
 
 
 def transposed_words(words: torch.Tensor) -> torch.Tensor:

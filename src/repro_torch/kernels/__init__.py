@@ -8,6 +8,7 @@ def launch_counts() -> dict:
     from repro_torch.kernels.idl_insert import kernel as ins_kernel
     from repro_torch.kernels.idl_locations import kernel as loc_kernel
     from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.rambo_merge import kernel as merge_kernel
     from repro_torch.kernels.window_min import kernel as wm_kernel
 
     return {probe_kernel.NAME: probe_kernel.launches,
@@ -17,4 +18,5 @@ def launch_counts() -> dict:
             ins_kernel.ROUNDS_NAME: ins_kernel.round_launches,
             wm_kernel.NAME: wm_kernel.launches,
             loc_kernel.NAME32: loc_kernel.launches32,
-            loc_kernel.NAME64: loc_kernel.launches64}
+            loc_kernel.NAME64: loc_kernel.launches64,
+            merge_kernel.NAME: merge_kernel.launches}

@@ -28,6 +28,7 @@ SOURCES = {
     "idl_locations": CSRC / "idl_locations.cu",
     "insert_planned": CSRC / "insert_planned.cu",
     "probe_planned_bits": CSRC / "probe_planned_bits.cu",
+    "rambo_merge": CSRC / "rambo_merge.cu",
     "window_min": CSRC / "window_min.cu",
 }
 NVCC_FLAGS = (

@@ -449,7 +449,9 @@ class GeneSearchService:
     def _runner(self, bucket: int):
         """The step for one bucket, built once: probe (the configured
         backend; through the membership cache when it is on), then the
-        padding-aware coverage postlude on the state's device."""
+        padding-aware coverage postlude on the state's device. Uncached,
+        a RAMBO index merges and counts in one fused launch
+        (``RamboIndex.coverage_batch``) instead."""
         step = self._runners.get(bucket)
         if step is not None:
             return step
@@ -463,6 +465,10 @@ class GeneSearchService:
                                             generation=self._version)
                 return self._post_on_device(reduce, state.device, per,
                                             valid, need)
+        elif self._state.meta.engine == "rambo":
+            def step(state, reads, valid, need):
+                return state_mod.to_engine(state).coverage_batch(
+                    reads, valid=valid, need=need, backend=backend)
         else:
             def step(state, reads, valid, need):
                 per = state_mod.to_engine(state).query_batch(

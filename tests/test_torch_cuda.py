@@ -23,6 +23,8 @@ from repro_torch.kernels.idl_locations import ops as loc_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.idl_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import ref as probe_ref  # noqa: E402
+from repro_torch.kernels.rambo_merge import kernel as merge_kernel  # noqa: E402
+from repro_torch.kernels.rambo_merge import ref as merge_ref  # noqa: E402
 from repro_torch.kernels.window_min import kernel as wm_kernel  # noqa: E402
 from repro_torch.kernels.window_min import ref as wm_ref  # noqa: E402
 
@@ -615,6 +617,122 @@ def test_cobs_rambo_msmt_on_cuda(cuda, kind):
         assert not bool(got[6, 6])
         eng = engs["planned"].insert_batch(genomes[6:], [6])
         assert bool(eng.msmt(reads[6:7])[0, 6])
+
+
+def _rambo_answers(rng, n_reads, n_k, n_rep, n_buckets, n_files, device):
+    """Answers ``(n_reads, n_k, R·B)`` int32 {0, 1}, each bucket hit with a
+    chance whose R-fold AND is 0.8, one file's R buckets all hit in each
+    read; an (R, N) int32 assignment with no bucket empty (where N >= B)."""
+    ans = rng.random((n_reads, n_k, n_rep * n_buckets)) < 0.8 ** (1 / n_rep)
+    assign = np.stack([rng.permutation(np.arange(n_files) % n_buckets)
+                       for _ in range(n_rep)]).astype(np.int32)
+    cols = np.arange(n_rep) * n_buckets + assign[:, rng.integers(
+        0, n_files, size=n_reads)].T
+    ans[np.arange(n_reads)[:, None], :, cols] = True
+    return (torch.as_tensor(ans.astype(np.int32), device=device),
+            torch.as_tensor(assign, device=device))
+
+
+@pytest.mark.parametrize("n_reads,n_k,n_rep,n_buckets,n_files", [
+    (256, 200, 10, 32, 1024),       # the RAMBO serve batch
+    (5, 231, 2, 20, 67),            # part of a bucket word, a ragged tile
+    (4, 600, 3, 40, 150),           # three kmer chunks, two bucket words
+    (3, 33, 4, 1344, 1500),         # one repetition a stripe, two file tiles
+    (7, 1, 10, 32, 1024),
+])
+def test_rambo_merge_kernel_vs_plain(cuda, n_reads, n_k, n_rep, n_buckets,
+                                     n_files):
+    """The fused merge and coverage kernel against its plain version on the
+    card and on the CPU, tolerance 0: a scalar need from θ 1 and 0.8, a
+    per-row need, valid masks with padded kmers and pad rows; one launch a
+    call, none for an empty batch."""
+    rng = np.random.default_rng(n_k * 7 + n_buckets)
+    ans, assign = _rambo_answers(rng, n_reads, n_k, n_rep, n_buckets,
+                                 n_files, cuda)
+    lengths = rng.integers(1, n_k + 1, size=n_reads)
+    lengths[-1] = lengths[0]
+    valid = torch.as_tensor(np.arange(n_k) < lengths[:, None], device=cuda)
+    need = torch.as_tensor(np.ceil(0.8 * lengths - 1e-9).astype(np.int32),
+                           device=cuda)
+    cases = [(n_k, None), (int(np.ceil(0.8 * n_k - 1e-9)), None),
+             (need, None), (need, valid), (0, valid)]
+    for c_need, c_valid in cases:
+        before = merge_kernel.launches
+        got = merge_kernel.merge_coverage(ans, assign, c_need, c_valid)
+        torch.cuda.synchronize()
+        assert merge_kernel.launches == before + 1
+        want = merge_ref.merge_coverage_ref(ans, assign, c_need, c_valid)
+        assert got.dtype == torch.bool and got.shape == (n_reads, n_files)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), merge_kernel.merge_coverage(
+            ans.cpu(), assign.cpu(),
+            c_need.cpu() if isinstance(c_need, torch.Tensor) else c_need,
+            None if c_valid is None else c_valid.cpu()))
+    assert 0 < int(got.sum()) <= got.numel()
+    before = merge_kernel.launches
+    empty = merge_kernel.merge_coverage(ans[:0], assign, 1)
+    assert empty.shape == (0, n_files) and merge_kernel.launches == before
+
+
+def test_rambo_merge_kernel_rejects_operands(cuda):
+    """A CUDA operand of the wrong dtype or shape, a non-contiguous one, a
+    CPU/CUDA mix and too many buckets raise before anything is launched."""
+    rng = np.random.default_rng(3)
+    ans, assign = _rambo_answers(rng, 4, 50, 2, 32, 70, cuda)
+    need = torch.full((4,), 5, dtype=torch.int32, device=cuda)
+    valid = torch.ones((4, 50), dtype=torch.bool, device=cuda)
+    bad = [
+        (ans.to(torch.int64), assign, need, valid),       # int64 answers
+        (ans, assign.to(torch.int64), need, valid),       # int64 assignment
+        (ans, assign, need.to(torch.int64), valid),       # int64 need
+        (ans, assign, need, valid.to(torch.int32)),       # int32 valid
+        (ans, assign[:, :, None], need, valid),           # a 3-D assignment
+        (ans, assign, need[:3], valid),                   # need of 3 rows
+        (ans, assign, need, valid[:, :49]),               # valid of 49 kmers
+        (ans[:, :, :63], assign, need, valid),            # 2 reps, width 63
+        (ans.transpose(0, 1).contiguous().transpose(0, 1), assign, need,
+         valid),                                          # non-contiguous
+        (ans.cpu(), assign, need, valid),                 # CPU answers
+        (ans, assign.cpu(), need, valid),                 # CPU assignment
+        (ans, assign, need.cpu(), valid),                 # CPU need
+        (ans, assign, need, valid.cpu()),                 # CPU valid
+        (ans, assign, 2 ** 31, valid),                    # need past 32 bits
+        (torch.zeros((1, 1, 2 * 1345), dtype=torch.int32, device=cuda),
+         assign, 1, None),                                # 1345 buckets
+    ]
+    before = merge_kernel.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            merge_kernel.merge_coverage(*args)
+    assert merge_kernel.launches == before
+
+
+def test_rambo_coverage_batch_launches_once_on_cuda(cuda):
+    """``RamboIndex.coverage_batch`` and ``msmt`` on the card: one fused
+    launch a call (and the service's uncached step one a batch), the same
+    verdicts as ``member_coverage`` over ``query_batch`` and as the CPU."""
+    from repro_torch.index import query
+    from repro_torch.serving import GeneSearchService, ServiceConfig
+
+    genomes, queries = _tier_reads()
+    eng = _tier_engine("rambo", cuda, genomes)
+    cpu = _tier_engine("rambo", "cpu", genomes)
+    reads = np.stack([q[:61] for q in queries])      # the shortest's length
+    for theta in (1.0, 0.8):
+        before = merge_kernel.launches
+        got = eng.msmt(reads, theta=theta)
+        assert merge_kernel.launches == before + 1
+        assert torch.equal(got, query.member_coverage(
+            eng.query_batch(reads), theta))
+        assert torch.equal(got.cpu(), cpu.msmt(reads, theta=theta))
+        svc = GeneSearchService(eng, ServiceConfig(theta=theta, max_batch=4))
+        before = merge_kernel.launches
+        results = svc.search(queries)
+        assert merge_kernel.launches - before == len(svc.batch_stats)
+        want = GeneSearchService(cpu, ServiceConfig(
+            theta=theta, max_batch=4)).search(queries)
+        for a, b in zip(results, want):
+            np.testing.assert_array_equal(a.matches, b.matches)
 
 
 # -- the serving tier on the card ---------------------------------------------

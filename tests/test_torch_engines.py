@@ -249,16 +249,41 @@ def _rambo_obs():
                                       "index.transposed_bytes"))
 
 
+def _rambo_merges():
+    """``{path: n}`` merged batches in ``index.rambo_merges`` so far."""
+    snap = t_metrics.DEFAULT.snapshot()
+    return {p: t_metrics.counter_total(snap, "index.rambo_merges",
+                                       {"path": p})
+            for p in ("fused", "per_kmer")}
+
+
 @pytest.mark.parametrize("backend", query.BACKENDS)
 def test_rambo_query_batch_records_one_merge_a_call(backend):
+    """``query_batch`` (the per-kmer merge) and ``coverage_batch`` (the
+    fused merge and count; ``msmt`` goes through it) each time one
+    ``merge`` stage a call and count it under their path; the fused
+    verdicts equal ``member_coverage`` over ``query_batch``'s hits."""
     g = _genomes("rambo")
     teng = _built("rambo", "idl", None)[1]["idl_insert"]
+    reads = g[:, 20:250]
     for n_calls in (1, 2, 3):
         before, _ = _rambo_obs()
+        merges = _rambo_merges()
         for _ in range(n_calls):
-            teng.query_batch(g[:, 20:250], backend=backend)
+            teng.query_batch(reads, backend=backend)
         after, _ = _rambo_obs()
         assert after["merge"] - before["merge"] == n_calls
+        assert _rambo_merges() == {"fused": merges["fused"],
+                                   "per_kmer": merges["per_kmer"] + n_calls}
+        for _ in range(n_calls):
+            teng.coverage_batch(reads, 0.8, backend=backend)
+        fused, _ = _rambo_obs()
+        assert fused["merge"] - after["merge"] == n_calls
+        assert _rambo_merges()["fused"] == merges["fused"] + n_calls
+    want = query.member_coverage(teng.query_batch(reads, backend=backend),
+                                 0.8)
+    assert torch.equal(teng.coverage_batch(reads, 0.8, backend=backend), want)
+    assert torch.equal(teng.msmt(reads, 0.8, backend=backend), want)
 
 
 def test_transposed_copy_counted_once_per_words_tensor():

@@ -18,6 +18,8 @@ from repro_torch.kernels.idl_insert import ref as ins_ref  # noqa: E402
 from repro_torch.kernels.idl_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.idl_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels.idl_probe import ref as probe_ref  # noqa: E402
+from repro_torch.kernels.rambo_merge import kernel as merge_kernel  # noqa: E402
+from repro_torch.index import query as t_query  # noqa: E402
 
 
 def _assert_same_fields(a, b):
@@ -442,3 +444,68 @@ def test_insert_planned_unsorted_duplicates_and_bounds(rng):
     with pytest.raises(ValueError):
         ins_kernel.insert_planned(mat, torch.zeros((2, 2), dtype=torch.int64))
     np.testing.assert_array_equal(mat.numpy().view(np.uint32), want)
+
+
+# -- RAMBO's fused merge and coverage count --------------------------------
+
+def rambo_answers(rng, n_reads, n_k, n_rep, n_buckets, n_files):
+    """Answers ``(n_reads, n_k, R·B)`` int32 {0, 1} as the bit probe gives
+    them, each bucket hit with a chance whose R-fold AND is 0.8 (the
+    coverage θ 0.8 asks), every answer of one file's R buckets set in each
+    read; and an (R, N) int32 assignment that leaves no bucket empty."""
+    ans = rng.random((n_reads, n_k, n_rep * n_buckets)) < 0.8 ** (1 / n_rep)
+    assign = np.stack([rng.permutation(np.arange(n_files) % n_buckets)
+                       for _ in range(n_rep)]).astype(np.int32)
+    cols = np.arange(n_rep) * n_buckets + assign[:, rng.integers(
+        0, n_files, size=n_reads)].T                       # (n_reads, R)
+    ans[np.arange(n_reads)[:, None], :, cols] = True
+    return torch.from_numpy(ans.astype(np.int32)), torch.from_numpy(assign)
+
+
+@pytest.mark.parametrize("mode", ["theta", "need", "padded"])
+@pytest.mark.parametrize("theta", [1.0, 0.8])
+@pytest.mark.parametrize("n_k", [1, 200, 231])
+@pytest.mark.parametrize("n_rep", [2, 10])
+@pytest.mark.parametrize("n_buckets", [32, 20, 40])
+def test_rambo_merge_coverage_plain_vs_chain(n_buckets, n_rep, n_k, theta,
+                                             mode):
+    """The fused merge's plain version (what a CPU tensor runs, through the
+    wrapper) against the chain it replaces, bit for bit: R gathers of the
+    bucket columns and their AND (``RamboIndex.query_batch``), then the
+    port's and the reference's ``member_coverage``. One or two words of
+    buckets, a scalar need from theta, a per-row need, and valid masks with
+    padded kmers and pad rows that replay row 0."""
+    rng = np.random.default_rng(n_buckets * 1000 + n_rep * 100 + n_k)
+    n_reads, n_files = 6, 3 * n_buckets + 7
+    ans, assign = rambo_answers(rng, n_reads, n_k, n_rep, n_buckets,
+                                n_files)
+    valid = need = None
+    if mode == "need":
+        need = torch.from_numpy(rng.integers(
+            n_k * 7 // 10, n_k + 2, size=n_reads, dtype=np.int32))
+    elif mode == "padded":
+        lengths = rng.integers(1, n_k + 1, size=n_reads)
+        lengths[-2:] = lengths[0]                   # pad rows replay row 0
+        ans[-2:] = ans[0]
+        valid = torch.from_numpy(np.arange(n_k) < lengths[:, None])
+        need = torch.from_numpy(
+            t_query.coverage_need(theta, lengths).astype(np.int32))
+    grid = (ans == 1).reshape(n_reads, n_k, n_rep, n_buckets)
+    member = grid[:, :, 0, assign[0].long()]
+    for r in range(1, n_rep):
+        member &= grid[:, :, r, assign[r].long()]
+    want = t_query.member_coverage(member, theta, valid=valid, need=need)
+    ref_want = np.asarray(j_query.member_coverage(
+        jnp.asarray(member.numpy()), theta,
+        valid=None if valid is None else jnp.asarray(valid.numpy()),
+        need=None if need is None else jnp.asarray(need.numpy())))
+    np.testing.assert_array_equal(want.numpy(), ref_want)
+    before = merge_kernel.launches
+    got = merge_kernel.merge_coverage(
+        ans, assign, t_query.coverage_need(theta, n_k) if need is None
+        else need, valid)
+    assert merge_kernel.launches == before              # CPU: no launch
+    assert got.dtype == torch.bool and got.shape == (n_reads, n_files)
+    assert torch.equal(got, want)
+    if mode == "theta" and theta == 1.0 and n_k > 1:
+        assert 0 < int(got.sum()) < got.numel()

@@ -25,7 +25,9 @@ from repro.index import store as j_store  # noqa: E402
 from repro.serving import service as j_service  # noqa: E402
 from repro_torch.configs import idl_genesearch  # noqa: E402
 from repro_torch.data import genome  # noqa: E402
-from repro_torch.index import engines, ingest, state as state_mod, store  # noqa: E402
+from repro_torch.core import idl  # noqa: E402
+from repro_torch.index import engines, ingest, query  # noqa: E402
+from repro_torch.index import state as state_mod, store  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serving import service  # noqa: E402
@@ -456,6 +458,67 @@ def test_subclassed_services_answer_alike_either_way(built, kind):
     if kind == "live":
         assert {r.delta_seq for r in got} == {1}
         assert all(40 in r.file_ids for r in got[-2:])
+
+
+# -- RAMBO's fused merge in the service ---------------------------------------
+
+@pytest.fixture(scope="module")
+def rambo_built(built):
+    """A RAMBO index over the smoke archive (64 files: B 8, R 6)."""
+    cfg, archive, _, _ = built
+    rcfg = idl.IDLConfig(k=31, t=16, L=1 << 10, eta=3, m=1 << 18)
+    eng = engines.RamboIndex.build(len(archive), rcfg, "idl", device="cpu")
+    return ingest.build_archive(eng, archive, read_len=cfg.read_len,
+                                chunk_reads=16)
+
+
+def _merges(before, after):
+    """``{path: n}`` batches ``index.rambo_merges`` counted in between."""
+    return {p: obs_metrics.counter_total(after, "index.rambo_merges",
+                                         {"path": p})
+            - obs_metrics.counter_total(before, "index.rambo_merges",
+                                        {"path": p})
+            for p in ("fused", "per_kmer")}
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.8])
+def test_rambo_service_fuses_the_merge(built, rambo_built, theta):
+    """The uncached service over a RAMBO index merges and counts in one
+    fused call a batch (``index.rambo_merges{path=fused}``), and answers
+    as ``member_coverage(query_batch(read))`` of each read alone: reads of
+    70-128 kmers in one 128-kmer bucket, three pad rows. With the
+    membership cache on, the merge takes the per-kmer route and the
+    answers stay the same."""
+    from repro_torch.serving import KmerCacheConfig
+
+    _, archive, _, _ = built
+    rng = np.random.default_rng(int(10 * theta))
+    reads = []
+    for i, n in enumerate((100, 131, 158, 117, 145)):
+        g = archive[int(rng.integers(0, len(archive)))].genome
+        s = int(rng.integers(0, len(g) - n))
+        reads.append(rng.integers(0, 4, size=n, dtype=np.uint8) if i == 3
+                     else np.asarray(g[s:s + n], dtype=np.uint8))
+    want = [query.member_coverage(rambo_built.query_batch(r[None]),
+                                  theta)[0].numpy() for r in reads]
+    assert any(w.any() for w in want) and not all(w.all() for w in want)
+    conf = service.ServiceConfig(theta=theta, max_batch=8)
+    svc = service.GeneSearchService(rambo_built, conf)
+    before = obs_metrics.DEFAULT.snapshot()
+    got = svc.search(reads)
+    after = obs_metrics.DEFAULT.snapshot()
+    assert [(b.bucket, b.pad_rows) for b in svc.batch_stats] == [(128, 3)]
+    assert _merges(before, after) == {"fused": 1, "per_kmer": 0}
+    for res, w in zip(got, want):
+        np.testing.assert_array_equal(res.matches, w)
+    cached = service.GeneSearchService(rambo_built, dataclasses.replace(
+        conf, kmer_cache=KmerCacheConfig(1 << 12)))
+    before = obs_metrics.DEFAULT.snapshot()
+    cold, warm = cached.search(reads), cached.search(reads)
+    merges = _merges(before, obs_metrics.DEFAULT.snapshot())
+    assert merges["fused"] == 0 and merges["per_kmer"] >= 1
+    _assert_same_results(cold, got, same_ids=False)
+    _assert_same_results(warm, got, same_ids=False)
 
 
 def _run(module, args, pythonpath):
