@@ -40,7 +40,9 @@ from repro_torch.obs import trace as obs_trace
 
 
 class _StateView:
-    """Every engine is a thin view over an :class:`IndexState`."""
+    """Every engine is a thin view over an :class:`IndexState`, and its
+    verdicts are the one rule (:func:`~repro_torch.index.state.verdicts`)
+    over its ``query_batch``."""
 
     @property
     def state(self) -> state_mod.IndexState:
@@ -54,6 +56,22 @@ class _StateView:
                 f"with_state: state is for engine {state.meta.engine!r}, "
                 f"this view is {kind!r}")
         return state_mod.to_engine(state)
+
+    def coverage_batch(self, reads, theta: float = 1.0, *, valid=None,
+                       need=None, backend: str = "idl_probe",
+                       dedup: bool = False, mesh=None) -> torch.Tensor:
+        """(B, n_files) bool, (B,) for the flat filter: whether each file's
+        kmer coverage reaches ``theta``, or ``need`` (B,) hits per row;
+        ``valid`` (B, n_kmers) bool excludes padding kmers."""
+        per = self.query_batch(reads, backend=backend, dedup=dedup,
+                               mesh=mesh)
+        return state_mod.verdicts(self.state.meta, per, theta, valid=valid,
+                                  need=need)
+
+    def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
+        """Multiple-set membership at kmer coverage ``theta``: the
+        unpadded :meth:`coverage_batch`."""
+        return self.coverage_batch(reads, theta, **kw)
 
 
 def _as_file_ids(file_ids, batch: int, n_files: int) -> np.ndarray:
@@ -127,10 +145,6 @@ class PackedBloomIndex(_StateView):
             bit_probe=True, device=self.words.device)
         return plan.execute(self.words, reads, backend=backend,
                             dedup=dedup, mesh=mesh)[..., 0] == 1
-
-    def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
-        """(B,) bool: kmer coverage of the one indexed set >= theta."""
-        return query.member_coverage(self.query_batch(reads, **kw), theta)
 
     @property
     def bits(self) -> torch.Tensor:
@@ -276,10 +290,6 @@ class CobsIndex(_StateView):
                 packed.unpack_file_bits(masks, len(g.file_ids))
         return out
 
-    def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
-        """(B, n_files) bool: per-file kmer coverage >= theta."""
-        return query.member_coverage(self.query_batch(reads, **kw), theta)
-
     @property
     def total_bits(self) -> int:
         return sum(int(g.cfg.m) * len(g.file_ids) for g in self.groups)
@@ -309,6 +319,19 @@ def rambo_assignment(n_files: int, n_buckets: int, n_rep: int) -> np.ndarray:
     return np.stack([
         hashing.np_hash_to_range(files, 0xA3B0 + r, n_buckets).astype(np.int32)
         for r in range(n_rep)], axis=0)
+
+
+def rambo_merge(grid: torch.Tensor, assignment) -> torch.Tensor:
+    """RAMBO's R-fold merge: (..., R·B) bool bucket hits and the (R, N)
+    file -> bucket ``assignment`` -> (..., N) bool per-file hits, a file's
+    bucket hit in all R repetitions (an AND accumulated over R, never an
+    (..., R, N) intermediate). Records nothing."""
+    asn = torch.as_tensor(assignment, dtype=torch.int64, device=grid.device)
+    grid = grid.unflatten(-1, (asn.shape[0], -1))
+    out = grid[..., 0, asn[0]]
+    for r in range(1, asn.shape[0]):
+        out &= grid[..., r, asn[r]]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,20 +422,15 @@ class RamboIndex(_StateView):
 
     def query_batch(self, reads, *, backend: str = "idl_probe",
                     dedup: bool = False, mesh=None) -> torch.Tensor:
-        """(B, n_kmers, n_files) bool: the file's bucket hit in all R
-        repetitions (an AND accumulated over R, never a (B, n_k, R, N)
-        intermediate), for the callers that need per-kmer hits (the
-        membership cache, shards, the LSM and live indexes). The merge's
-        host time, its R gathers and R - 1 ANDs enqueued with no wait, is
+        """(B, n_kmers, n_files) bool: :func:`rambo_merge` of the bucket
+        hits, for the callers that need per-kmer hits (the membership
+        cache, the LSM and live indexes). The merge's host time, its R
+        gathers and R - 1 ANDs enqueued with no wait, is
         ``planner.stage_ms{op=query, stage=merge}``; each call counts in
         ``index.rambo_merges{path=per_kmer}``."""
-        grid = self.query_grid(reads, backend=backend, dedup=dedup,
-                               mesh=mesh)
+        grid = self._probe(reads, backend, dedup, mesh) == 1
         t0 = obs_trace.now()
-        assign = self._assign_on_device.to(torch.int64)
-        out = grid[:, :, 0, assign[0]]
-        for r in range(1, self.n_rep):
-            out &= grid[:, :, r, assign[r]]
+        out = rambo_merge(grid, self._assign_on_device)
         query.record_stage("query", "merge", t0)
         _count_merge("per_kmer")
         return out
@@ -424,7 +442,7 @@ class RamboIndex(_StateView):
         repetitions) reach ``need`` (B,) per row, or ``theta``'s
         :func:`~repro_torch.index.query.coverage_need` of the kmer axis;
         ``valid`` (B, n_kmers) bool excludes padding kmers. The same
-        verdicts as :func:`~repro_torch.index.query.member_coverage` over
+        verdicts as :func:`~repro_torch.index.state.verdicts` over
         :meth:`query_batch`, with the merge and the count in one launch of
         ``rambo_merge_coverage`` on the probe's answers (its plain version
         on a CPU index). The launch's host time is ``planner.stage_ms{op=
@@ -445,10 +463,6 @@ class RamboIndex(_StateView):
         query.record_stage("query", "merge", t0)
         _count_merge("fused")
         return out
-
-    def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
-        """(B, n_files) bool: per-file kmer coverage >= theta."""
-        return self.coverage_batch(reads, theta, **kw)
 
     @property
     def _assign_on_device(self) -> torch.Tensor:
@@ -570,12 +584,6 @@ class BitSlicedIndex(_StateView):
         )
         return plan.execute(self.words, reads, backend=backend, dedup=dedup,
                             mesh=mesh)
-
-    def msmt(self, reads, theta: float = 1.0, **kw) -> torch.Tensor:
-        """(B, n_files) bool — the serve-layout MSMT (one theta rule)."""
-        per_kmer = self.query_batch(reads, **kw)          # (B, n_k, W)
-        mask = query.file_match_mask(per_kmer, theta)     # (B, W)
-        return packed.unpack_file_bits(mask, self.n_files)
 
 
 def _round_up(x: int, align: int) -> int:

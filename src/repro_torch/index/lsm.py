@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import idl as idl_mod
-from repro_torch.index import packed, query, store
+from repro_torch.index import store
 from repro_torch.index import state as state_mod
 
 __all__ = [
@@ -329,17 +329,13 @@ def merged_msmt(base: state_mod.IndexState, delta: state_mod.IndexState,
     """MSMT over the logical union of base and delta (two-probe merge).
 
     The reference the serving layer's batched steps are tested against:
-    per-kmer outputs of both states OR-ed before the one integer coverage
-    rule (``query.member_coverage`` / ``query.file_match_mask``).
+    per-kmer outputs of both states OR-ed before the one verdict rule
+    (:func:`~repro_torch.index.state.verdicts`).
     """
     per = merge_kmer_hits(
         state_mod.query(base, reads, backend=backend, **kw),
         state_mod.query(delta, reads, backend=backend, **kw))
-    meta = base.meta
-    if meta.engine == "bitsliced":
-        mask = query.file_match_mask(per, theta)
-        return packed.unpack_file_bits(mask, meta.n_files)
-    return query.member_coverage(per, theta)
+    return state_mod.verdicts(base.meta, per, theta)
 
 
 # ---------------------------------------------------------------------------

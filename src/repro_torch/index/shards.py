@@ -56,7 +56,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.index import packed, query
+from repro_torch.index import engines, packed, query
 from repro_torch.index import state as state_mod
 from repro_torch.index import store
 
@@ -254,15 +254,6 @@ def join_states(spec: ShardSpec,
 # Partial probe + exact merge.
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=64)
-def rambo_file_assignment(meta: state_mod.StateMeta) -> np.ndarray:
-    """(R, N) int32 file->bucket map, reconstructed from meta alone (the
-    assignment hash is deterministic, seed ``0xA3B0 + r``)."""
-    from repro_torch.index import engines
-
-    return engines.rambo_assignment(meta.n_files, meta.n_buckets, meta.n_rep)
-
-
 @functools.lru_cache(maxsize=128)
 def partial_prober(cfg, scheme: str, lo: int, hi: int, transpose: bool):
     """The bit-probe partial for one (geometry, word range).
@@ -274,8 +265,6 @@ def partial_prober(cfg, scheme: str, lo: int, hi: int, transpose: bool):
     device (as the reference computes it outside any kernel); a RAMBO
     shard probes the transposed copy kept on its words tensor.
     """
-    from repro_torch.index import engines
-
     span = hi - lo
 
     def run(words, reads):
@@ -315,8 +304,7 @@ def merge_counts(spec: ShardSpec, partials: Sequence):
     Bit-sliced per-kmer file masks concatenate on the word axis; cobs
     per-kmer grids OR over disjoint file sets; bit-probe miss counts sum,
     and a kmer hits iff the total is zero. RAMBO's bucket grid becomes
-    per-file hits by an AND over the R repetitions, accumulated (no
-    ``(B, n_k, R, N)`` intermediate, as the port's ``RamboIndex`` does).
+    per-file hits through :func:`~repro_torch.index.engines.rambo_merge`.
     """
     if len(partials) != spec.n_shards:
         raise ShardSetError(
@@ -337,14 +325,8 @@ def merge_counts(spec: ShardSpec, partials: Sequence):
     if eng == "bloom":
         return member[..., 0]                            # (B, n_k) bool
     meta = spec.meta
-    grid = member.reshape(member.shape[0], member.shape[1],
-                          meta.n_rep, meta.n_buckets)
-    asn = torch.as_tensor(rambo_file_assignment(meta), dtype=torch.int64,
-                          device=grid.device)
-    out = grid[:, :, 0, asn[0]]
-    for r in range(1, meta.n_rep):
-        out &= grid[:, :, r, asn[r]]
-    return out                                           # (B, n_k, N)
+    return engines.rambo_merge(member, engines.rambo_assignment(
+        meta.n_files, meta.n_buckets, meta.n_rep))       # (B, n_k, N)
 
 
 def sharded_msmt(spec: ShardSpec, states: Sequence[state_mod.IndexState],
@@ -354,10 +336,7 @@ def sharded_msmt(spec: ShardSpec, states: Sequence[state_mod.IndexState],
     per = merge_counts(spec, [
         shard_query(spec, s, st, reads, backend=backend)
         for s, st in enumerate(states)])
-    if spec.meta.engine == "bitsliced":
-        mask = query.file_match_mask(per, theta)
-        return packed.unpack_file_bits(mask, spec.meta.n_files)
-    return query.member_coverage(per, theta)
+    return state_mod.verdicts(spec.meta, per, theta)
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +401,7 @@ class ShardBuilder:
     def insert_batch(self, reads, file_ids=None, *,
                      backend: str = "idl_insert", window_min=None,
                      donate: bool = True) -> "ShardBuilder":
-        from repro_torch.index import engines, ingest
+        from repro_torch.index import ingest
 
         if backend not in self.BACKENDS:
             raise ValueError(
@@ -443,7 +422,8 @@ class ShardBuilder:
                 0 if file_ids is None else file_ids, dtype=np.int32))
             if fids.shape[0] == 1 and reads.shape[0] != 1:
                 fids = np.broadcast_to(fids, (reads.shape[0],))
-            asn = rambo_file_assignment(meta)
+            asn = engines.rambo_assignment(meta.n_files, meta.n_buckets,
+                                           meta.n_rep)
             offs = np.arange(meta.n_rep, dtype=np.int32) * meta.n_buckets
             aux = torch.as_tensor(asn[:, fids].T + offs[None, :],
                                   device=words.device)          # (B, R)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import idl as idl_mod
-from repro_torch.index import registry
+from repro_torch.index import packed, query as query_mod, registry
 
 
 class StaleIndexError(RuntimeError):
@@ -185,6 +185,23 @@ def to_engine(state: IndexState):
             cfg=meta.cfgs[0], scheme=meta.scheme, n_files=meta.n_files,
             words=state.words[0])
     raise ValueError(f"unknown engine kind {meta.engine!r}")
+
+
+def verdicts(meta: StateMeta, per_kmer: torch.Tensor, theta: float = 1.0, *,
+             valid=None, need=None) -> torch.Tensor:
+    """The verdict rule: an engine's per-kmer ``query_batch`` output ->
+    (B, n_files) bool per-file verdicts, (B,) bool for the single-set flat
+    filter: kmer coverage >= ``theta``. ``valid`` (B, n_kmers) bool
+    excludes padding kmers; ``need`` (B,) int gives per-row hit thresholds
+    overriding ``theta``. Packed bit-sliced masks reduce through
+    ``query.file_match_mask`` (at theta >= 1 the masked AND over the valid
+    kmers, ``need`` unused), every other engine's per-kmer hits through
+    ``query.member_coverage``."""
+    if meta.engine == "bitsliced":
+        mask = query_mod.file_match_mask(
+            per_kmer, theta, valid=valid, need=None if theta >= 1.0 else need)
+        return packed.unpack_file_bits(mask, meta.n_files)
+    return query_mod.member_coverage(per_kmer, theta, valid=valid, need=need)
 
 
 def insert(state: IndexState, reads, file_ids=None, *, donate: bool = True,

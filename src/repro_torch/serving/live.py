@@ -34,8 +34,6 @@ when it published no-ops the late delivery.
 
 from __future__ import annotations
 
-import dataclasses
-import functools
 import threading
 import time
 from concurrent.futures import Future
@@ -170,11 +168,7 @@ class LiveGeneSearchService(service_mod.GeneSearchService):
         step = self._runners.get(bucket)
         if step is not None:
             return step
-        meta = self._live.meta
-        reduce = functools.partial(
-            service_mod._msmt_reduce, meta.engine, meta.n_files or 1,
-            self.config.theta)
-        backend = self.config.backend
+        theta, backend = self.config.theta, self.config.backend
         if self.kmer_cache is not None:
             # cached path: merged base|delta rows from the front cache
             # keyed (version, delta_seq); misses backfill from the
@@ -185,8 +179,7 @@ class LiveGeneSearchService(service_mod.GeneSearchService):
             def step(base, delta, reads, valid, need, version, seq):
                 per = self._merged_per_kmer(base, delta, reads,
                                             version, seq)
-                return self._post_on_device(reduce, base.device, per,
-                                            valid, need)
+                return self._post_on_device(base, per, valid, need)
         else:
             def step(base, delta, reads, valid, need):
                 per = lsm.merge_kmer_hits(
@@ -194,7 +187,8 @@ class LiveGeneSearchService(service_mod.GeneSearchService):
                         reads, backend=backend),
                     state_mod.to_engine(delta).query_batch(
                         reads, backend=backend))
-                return reduce(per, valid, need)
+                return state_mod.verdicts(base.meta, per, theta,
+                                          valid=valid, need=need)
         self._runners[bucket] = step
         return step
 
@@ -270,8 +264,7 @@ class LiveGeneSearchService(service_mod.GeneSearchService):
     def _finalize(self, take, bucket: int, out
                   ) -> List[service_mod.SearchResult]:
         out, version, seq = out
-        return [dataclasses.replace(r, version=version, delta_seq=seq)
-                for r in super()._finalize(take, bucket, out)]
+        return self._decode(take, bucket, self._wait(out), version, seq)
 
 
 class LiveReplicaRouter(router_mod.ReplicaRouter):

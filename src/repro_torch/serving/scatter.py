@@ -66,7 +66,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.index import query, shards as shards_mod
+from repro_torch.index import shards as shards_mod
 from repro_torch.index import state as state_mod
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import trace as obs_trace
@@ -167,14 +167,12 @@ class ShardSearchService(service_mod.GeneSearchService):
         if self._spec.row_probe:
             return super()._finalize(take, bucket, out)
         out = self._wait(out)   # (max_batch, bucket, W') local misses
-        return [service_mod.SearchResult(
-            request_id=req.request_id,
-            # trim pad kmers NOW: a pad slot has zero misses and would
-            # alias a hit once partials are summed across shards
-            matches=np.ascontiguousarray(out[i, :n_k]),
-            file_ids=(), n_kmers=n_k, bucket=bucket,
-            version=self._version)
-            for i, (req, n_k) in enumerate(take)]
+        version = self._version
+        # trim pad kmers NOW: a pad slot has zero misses and would alias a
+        # hit once partials are summed across shards
+        return [service_mod.SearchResult(req.request_id, out[i, :n_k], (),
+                                         n_k, bucket, version)
+                for i, (req, n_k) in enumerate(take)]
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +679,6 @@ class ScatterGatherRouter:
                     matches |= np.asarray(res.matches, dtype=bool)
             missing = tuple(sorted(
                 f for s in g.lost for f in shards_mod.shard_files(spec, s)))
-            fids = tuple(int(f) for f in np.nonzero(matches)[0])
         else:
             if g.lost:
                 dead = sorted(g.lost)
@@ -690,24 +687,18 @@ class ScatterGatherRouter:
                     f"bit-probe shard(s) {dead} (word ranges {ranges}) "
                     f"died; their probes are unanswerable — failing loud "
                     f"instead of silently inflating the FPR")
-            total = None              # (n_k, W') summed miss counts
-            for s in range(spec.n_shards):
-                part = np.asarray(g.parts[s].matches, dtype=np.int64)
-                total = part if total is None else total + part
-            member = total == 0       # a hit is zero misses ANYWHERE
-            need = query.coverage_need(
-                self.config.service.theta, g.n_kmers)
-            if meta.engine == "bloom":
-                hit = int(member[:, 0].sum()) >= need
-                matches = np.bool_(hit)
-                fids = (0,) if hit else ()
-            else:                     # rambo: bucket grid -> per-file AND
-                grid = member.reshape(g.n_kmers, meta.n_rep,
-                                      meta.n_buckets)
-                asn = shards_mod.rambo_file_assignment(meta)   # (R, N)
-                per_rep = grid[:, np.arange(meta.n_rep)[:, None], asn]
-                matches = per_rep.all(axis=1).sum(axis=0) >= need
-                fids = tuple(int(f) for f in np.nonzero(matches)[0])
+            # each shard's (n_k, W') miss counts, summed by the shards'
+            # merge, then the one verdict rule over the request's kmers
+            per = shards_mod.merge_counts(spec, [
+                torch.as_tensor(np.asarray(g.parts[s].matches,
+                                           dtype=np.int64))[None]
+                for s in range(spec.n_shards)])
+            matches = state_mod.verdicts(
+                meta, per, self.config.service.theta).numpy()[0]
+        if matches.ndim == 0:         # the flat filter: one set
+            fids = (0,) if matches else ()
+        else:
+            fids = tuple(int(f) for f in np.flatnonzero(matches))
         return service_mod.SearchResult(
             request_id=g.request_id, matches=matches, file_ids=fids,
             n_kmers=g.n_kmers, bucket=bucket, version=self._set_version,

@@ -59,14 +59,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import itertools
 from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.index import packed, query, store
+from repro_torch.index import query, store
 from repro_torch.index import state as state_mod
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -238,21 +237,6 @@ def record_cache_stage(stage: str, t0: float) -> float:
 
 _CACHE_STAGES = obs_metrics.StageTimer("serving.cache_stage_ms",
                                        tier="service")
-
-
-def _msmt_reduce(kind: str, n_files: int, theta: float, per, valid, need):
-    """Per-kmer engine output -> per-request verdicts, with pad kmers masked
-    and per-row thresholds (the one theta rule): (B, n_files) bool for the
-    bit-sliced index (from packed masks), COBS and RAMBO (from per-file
-    kmer hits), (B,) bool for the single-set flat filter."""
-    if kind == "bitsliced":
-        if theta >= 1.0:
-            # a row matches iff all its valid kmers hit: the masked AND path
-            mask = query.file_match_mask(per, theta, valid=valid)
-        else:
-            mask = query.file_match_mask(per, theta, valid=valid, need=need)
-        return packed.unpack_file_bits(mask, n_files)
-    return query.member_coverage(per, theta, valid=valid, need=need)
 
 
 class GeneSearchService:
@@ -447,44 +431,36 @@ class GeneSearchService:
 
     # -- execution ----------------------------------------------------------
     def _runner(self, bucket: int):
-        """The step for one bucket, built once: probe (the configured
-        backend; through the membership cache when it is on), then the
-        padding-aware coverage postlude on the state's device. Uncached,
-        a RAMBO index merges and counts in one fused launch
-        (``RamboIndex.coverage_batch``) instead."""
+        """The step for one bucket, built once: the engine's padding-aware
+        ``coverage_batch`` with the configured backend; with the membership
+        cache on, the cached per-kmer rows through the verdict rule
+        instead."""
         step = self._runners.get(bucket)
         if step is not None:
             return step
-        reduce = functools.partial(
-            _msmt_reduce, self._state.meta.engine, self.n_files,
-            self.config.theta)
-        backend = self.config.backend
+        theta, backend = self.config.theta, self.config.backend
         if self.kmer_cache is not None:
             def step(state, reads, valid, need):
                 per = self._cached_per_kmer(state, reads,
                                             generation=self._version)
-                return self._post_on_device(reduce, state.device, per,
-                                            valid, need)
-        elif self._state.meta.engine == "rambo":
-            def step(state, reads, valid, need):
-                return state_mod.to_engine(state).coverage_batch(
-                    reads, valid=valid, need=need, backend=backend)
+                return self._post_on_device(state, per, valid, need)
         else:
             def step(state, reads, valid, need):
-                per = state_mod.to_engine(state).query_batch(
-                    reads, backend=backend)
-                return reduce(per, valid, need)
+                return state_mod.to_engine(state).coverage_batch(
+                    reads, theta, valid=valid, need=need, backend=backend)
         self._runners[bucket] = step
         return step
 
-    def _post_on_device(self, reduce, dev, per: np.ndarray, valid, need):
-        """The cached path's postlude: the batch's host rows go to the
-        device in one copy (counted), then the coverage reduction."""
+    def _post_on_device(self, state, per: np.ndarray, valid, need):
+        """The cached path's postlude: the batch's host rows go to
+        ``state``'s device in one copy (counted), then the verdict rule."""
         t0 = obs_trace.now()
         self._obs_bytes_up.inc(per.nbytes)
-        out = reduce(torch.as_tensor(per, device=dev),
-                     torch.as_tensor(valid, device=dev),
-                     torch.as_tensor(need, device=dev))
+        dev = state.device
+        out = state_mod.verdicts(
+            state.meta, torch.as_tensor(per, device=dev), self.config.theta,
+            valid=torch.as_tensor(valid, device=dev),
+            need=torch.as_tensor(need, device=dev))
         record_cache_stage("upload", t0)
         return out
 
@@ -616,14 +592,19 @@ class GeneSearchService:
         return out
 
     def _finalize(self, take, bucket: int, out) -> List[SearchResult]:
-        """Copy the verdicts to the host and decode per-request results:
-        one ``flatnonzero`` over the batch's rows, split by row;
-        ``matches`` is the request's row of the host verdicts."""
-        out = self._wait(out)
+        """Copy the verdicts to the host and decode them (:meth:`_decode`)
+        under the served version."""
+        return self._decode(take, bucket, self._wait(out), self._version)
+
+    def _decode(self, take, bucket: int, out: np.ndarray, version: int,
+                delta_seq: int = 0) -> List[SearchResult]:
+        """Per-request results from the host verdicts: one ``flatnonzero``
+        over the batch's rows, split by row; ``matches`` is the request's
+        row of the verdicts."""
         ids, n_kmers = _columns(take)
         n = len(ids)
         hits = out[:n]
-        if self._state.meta.engine == "bloom":    # one set: a bool a row
+        if hits.ndim == 1:                        # one set: a bool a row
             fids = [(0,) if hit else () for hit in hits.tolist()]
         else:
             # the flat form: a 2-D nonzero costs ten times as much
@@ -631,10 +612,9 @@ class GeneSearchService:
             ends = np.searchsorted(flat, np.arange(n + 1) * width).tolist()
             col = (flat % width).tolist()
             fids = [tuple(col[a:b]) for a, b in zip(ends, ends[1:])]
-        version = self._version
         # positional: (request_id, matches, file_ids, n_kmers, bucket,
-        # version), a third cheaper than by keyword
-        return [SearchResult(rid, m, f, n_k, bucket, version)
+        # version, delta_seq), a third cheaper than by keyword
+        return [SearchResult(rid, m, f, n_k, bucket, version, delta_seq)
                 for rid, m, f, n_k in zip(ids, hits, fids, n_kmers)]
 
     def _flush_bucket(self, bucket: int) -> None:

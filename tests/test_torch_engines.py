@@ -339,6 +339,91 @@ def test_every_engine_is_a_gene_index():
     assert not isinstance(object(), GeneIndex)
 
 
+# -- the verdict rule --------------------------------------------------------
+
+# each read's kmer count in the padded case: 200, 150 and 90 of 200 slots
+VERDICT_READ_LENS = (230, 180, 120)
+
+
+@functools.lru_cache(maxsize=None)
+def _verdict_engines(kind: str):
+    """A (reference, port) pair of ``kind``, every genome inserted under
+    its file id (the flat filter, one set, only the first three)."""
+    if kind in ("cobs", "rambo"):
+        jeng, ports = _built(kind, "idl", None)
+        return jeng, ports["idl_insert"]
+    jc, tc = _cfgs()
+    g = _genomes("rambo")
+    if kind == "bloom":
+        g = g[:3]
+        jeng = j_engines.PackedBloomIndex.build(jc)
+        teng = engines.PackedBloomIndex.build(tc, device="cpu")
+    else:
+        jeng = j_engines.BitSlicedIndex.build(jc, n_files=len(g))
+        teng = engines.BitSlicedIndex.build(tc, n_files=len(g), device="cpu")
+    fids = np.arange(len(g))
+    return (jeng.insert_batch(jnp.asarray(g), fids),
+            teng.insert_batch(g, fids))
+
+
+def _verdict_reads(kind: str) -> np.ndarray:
+    """``_queries``' 230-base reads, the 0, 4, 12 or 40 bases before base
+    50 replaced by random ones in turn: kmer coverage on both sides of 0.8
+    in every prefix the padded case keeps."""
+    reads = _queries("cobs" if kind == "cobs" else "rambo").copy()
+    rng = np.random.default_rng(8)
+    for i, n in enumerate(np.resize([0, 4, 12, 40], len(reads))):
+        reads[i, 50 - n:50] = rng.integers(0, 4, size=n, dtype=np.uint8)
+    return reads
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_msmt(kind: str, theta: float, read_len: int) -> np.ndarray:
+    """The reference's ``msmt`` of every verdict read cut to ``read_len``."""
+    reads = _verdict_reads(kind)[:, :read_len]
+    return np.asarray(_verdict_engines(kind)[0].msmt(jnp.asarray(reads),
+                                                     theta=theta))
+
+
+@pytest.mark.parametrize("padding", ["none", "pad_kmers"])
+@pytest.mark.parametrize("theta", [1.0, 0.8])
+@pytest.mark.parametrize("kind", ["bloom", "cobs", "bitsliced", "rambo"])
+def test_coverage_batch_is_the_verdict_rule_on_query_batch(kind, theta,
+                                                           padding):
+    """Every engine's ``coverage_batch`` (and ``msmt``) equals the one
+    verdict rule (``state.verdicts``) over its ``query_batch``, and the
+    reference's ``msmt`` of the unpadded reads. Padded: reads of 200, 150
+    and 90 kmers in one 230-base batch, the pad kmers masked by ``valid``
+    and each row's threshold in ``need``."""
+    teng = _verdict_engines(kind)[1]
+    reads = _verdict_reads(kind)
+    n_slots = reads.shape[1] - CFG["k"] + 1
+    valid = need = None
+    want = _reference_msmt(kind, theta, reads.shape[1])
+    if padding == "pad_kmers":
+        lens = np.resize(VERDICT_READ_LENS, len(reads))
+        n_k = lens - CFG["k"] + 1
+        # pad bases: another file's read, whose kmers would hit there
+        reads, whole = reads.copy(), reads
+        for i, n in enumerate(lens):
+            reads[i, n:] = whole[(i + 2) % len(reads), :reads.shape[1] - n]
+        valid = torch.as_tensor(np.arange(n_slots) < n_k[:, None])
+        need = torch.as_tensor(query.coverage_need(theta, n_k))
+        want = np.stack([_reference_msmt(kind, theta, int(n))[i]
+                         for i, n in enumerate(lens)])
+    got = teng.coverage_batch(reads, theta, valid=valid, need=need)
+    rule = state_mod.verdicts(teng.state.meta, teng.query_batch(reads),
+                              theta, valid=valid, need=need)
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert got.shape == ((len(reads),) if kind == "bloom"
+                         else (len(reads), teng.n_files))
+    assert torch.equal(got, rule)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any() and not want.all()
+    if padding == "none":
+        assert torch.equal(teng.msmt(reads, theta), got)
+
+
 # -- minimizer sub-sampling --------------------------------------------------
 
 @pytest.mark.parametrize("read_len", [35, 60, 230])

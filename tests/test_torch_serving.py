@@ -521,6 +521,53 @@ def test_rambo_service_fuses_the_merge(built, rambo_built, theta):
     _assert_same_results(warm, got, same_ids=False)
 
 
+@pytest.mark.parametrize("kind", ["bloom", "cobs", "bitsliced", "rambo"])
+def test_uncached_step_is_the_engines_coverage_batch(built, rambo_built,
+                                                     monkeypatch, kind):
+    """The uncached service's step is the engine's ``coverage_batch``,
+    once a batch, for every engine; its answers are each read's own
+    unpadded ``msmt`` (ragged reads over several buckets, θ 0.8), and the
+    serving module keeps no verdict rule of its own."""
+    cfg, archive, _, teng = built
+    if kind == "bitsliced":
+        eng = teng
+    elif kind == "rambo":
+        eng = rambo_built
+    else:
+        if kind == "bloom":         # one set: the first eight files
+            eng, files = engines.PackedBloomIndex.build(
+                cfg.idl_config(), cfg.scheme, device="cpu"), archive[:8]
+        else:
+            eng, files = engines.CobsIndex.build(
+                [len(f.genome) - cfg.k + 1 for f in archive],
+                cfg.idl_config(), cfg.scheme, device="cpu"), archive
+        eng = ingest.build_archive(eng, files, read_len=cfg.read_len,
+                                   chunk_reads=16)
+    calls = []
+    real = type(eng).coverage_batch
+
+    def counted(self, *a, **kw):
+        calls.append(kw.get("need") is not None)
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(type(eng), "coverage_batch", counted)
+    svc = service.GeneSearchService(
+        eng, service.ServiceConfig(theta=0.8, max_batch=4))
+    reads = _queries(archive, np.random.default_rng(12), n=12)
+    got = svc.search(reads)
+    monkeypatch.undo()
+    assert calls == [True] * len(svc.batch_stats)
+    assert len({b.bucket for b in svc.batch_stats}) > 1
+    want = [eng.msmt(r[None], 0.8).numpy()[0] for r in reads]
+    assert any(np.any(w) for w in want) and not all(np.all(w) for w in want)
+    for res, w in zip(got, want):
+        np.testing.assert_array_equal(res.matches, w)
+        assert res.matches.shape == w.shape == (
+            () if kind == "bloom" else (eng.n_files,))
+        assert res.file_ids == tuple(np.flatnonzero(w).tolist())
+    assert not hasattr(service, "_msmt_reduce")
+
+
 def _run(module, args, pythonpath):
     env = dict(os.environ, PYTHONPATH=pythonpath, JAX_PLATFORMS="cpu")
     return subprocess.run([sys.executable, "-m", module] + args,
