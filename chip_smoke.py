@@ -45,7 +45,9 @@ reference package) and runs these phases, printing one line each:
    RAMBO's fused merge and coverage count ``rambo_merge_coverage`` at one
    256-read serve batch's answers ((256, 200, 320) int32 to (256, 1024)
    verdicts, B 32, R 10) and at a few other shapes, beside the ATen chain
-   it replaced. Each
+   it replaced; 2i the compact plan's counters ``probe_plan_counts`` on one
+   serve batch's (256, 4, 200) IDL, RH and RAMBO probe streams, beside the
+   ATen chain it replaced. Each
    main-shape kernel is timed with CUDA events and by CUDA-graph replay
    (the probe kernels and the gathers' library call also with the L2
    flushed before each call) beside its plain version, its bound (bytes,
@@ -208,7 +210,7 @@ reference package) and runs these phases, printing one line each:
    ``t_bound`` beside the measured medians, failing a median more than 5%
    under ``t_compute``.
 
-The phases run in the order 1, 2a-2g, 3, 7a, 7b, 9a (it needs phase 3's
+The phases run in the order 1, 2a-2i, 3, 7a, 7b, 9a (it needs phase 3's
 index), 8 (it needs the card clear of this process's indexes), 4, 5, 5b,
 6, 7c, 9b, 10 (after 9b has freed the card), 11, 12, 13, 14. Before
 phase 2 it profiles one tiny operation, so ``torch.profiler``'s lazy
@@ -672,7 +674,9 @@ def _counters():
             (probe_kernel.BITS_NAME, probe_kernel, "bits_launches"),
             (ins_kernel.ROUNDS_NAME, ins_kernel, "round_launches"),
             (probe_kernel.BIT_MODE_NAME, probe_kernel, "bit_mode_launches"),
-            (merge_kernel.NAME, merge_kernel, "launches")]
+            (merge_kernel.NAME, merge_kernel, "launches"),
+            (probe_kernel.PLAN_COUNTS_NAME, probe_kernel,
+             "plan_counts_launches")]
 
 
 def reset_launches() -> None:
@@ -1718,6 +1722,106 @@ def rambo_merge_phase(dev) -> list:
           f"{record['plain_ms']:.6f} ms, the ATen chain "
           f"{json.dumps(t_chain)}; ragged kmers (231, 600: three chunks), "
           f"20 / 40 / 1344 buckets, 67 / 150 / 1500 files == plain")
+    return [record]
+
+
+def plan_counts_phase(cfg, dev) -> list:
+    """Phase 2i: ``probe_plan_counts`` on one 256-read serve batch's
+    (256, 4, 200) probe stream of the bit-sliced path (IDL and RH rows) and
+    of RAMBO's bit probe (L 2^12 over the (2^22, 320) copy), against its
+    plain version and the host planner (tolerance 0); timed on the IDL
+    stream by events, graph replay and with the L2 cold, beside its byte
+    bound (the stream read once), the plain version, which is the ATen
+    chain it replaced (``run_starts``' cummax chain, min, max, stack), and
+    the host wall of ``compact_probe_plan`` on either path. Returns its JSON
+    record."""
+    import dataclasses
+
+    from repro_torch.core import idl
+    from repro_torch.index import query
+    from repro_torch.kernels.idl_probe import kernel as probe_kernel
+    from repro_torch.kernels.idl_probe import ops as probe_ops
+    from repro_torch.kernels.idl_probe import ref as probe_ref
+    from repro_torch.serving import genesearch as gs
+
+    rng = np.random.default_rng(2)
+    reads = torch.as_tensor(
+        rng.integers(0, 4, size=(SERVE_BATCH, cfg.read_len), dtype=np.uint8),
+        device=dev)
+    shape = (cfg.m, cfg.file_words)
+    rambo_m = 1 << 27           # the rambo-idl deployment's filter bits
+    rambo_cfg = idl.IDLConfig(k=31, t=16, L=1 << 12, eta=4, m=rambo_m)
+    plans = {
+        "idl": gs.query_plan(cfg, SERVE_BATCH, shape, device=dev),
+        "rh": gs.query_plan(dataclasses.replace(cfg, scheme="rh"),
+                            SERVE_BATCH, shape, device=dev),
+        "rambo": query.plan_query(
+            rambo_cfg, "idl", (SERVE_BATCH, cfg.read_len),
+            (rambo_m // 32, RAMBO_REPS * RAMBO_BUCKETS), bit_probe=True,
+            device=dev),
+    }
+    runs = {}
+    for kind, qplan in plans.items():
+        rows = qplan.locations(reads)
+        block = qplan.rows_per_block * (32 if qplan.bit_probe else 1)
+        c = qplan.probes_per_run
+        got = probe_kernel.plan_counts(rows, block, c)
+        plain = probe_ref.plan_counts_ref(rows, block, c)
+        host = rows.cpu().numpy()
+        want = probe_ops.plan_probe_runs(host.reshape(-1, host.shape[-1]),
+                                         block_bits=block, probes_per_run=c)
+        check(got.tolist() == plain.tolist()
+              == [want.n_runs, host.min(), host.max()],
+              f"probe_plan_counts == plain == the host planner ({kind})")
+        runs[kind] = want.n_runs
+    qplan = plans["idl"]
+    rows = qplan.locations(reads)
+    block, c = qplan.rows_per_block, qplan.probes_per_run
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = functools.partial(scratch.fill_, 0)
+
+    def kernel():
+        return probe_kernel.plan_counts(rows, block, c)
+
+    def chain():
+        return probe_ref.plan_counts_ref(rows, block, c)
+
+    t_kernel = timed(kernel, flush)
+    t_chain = {"ms": cuda_ms(chain, 20), "graph_ms": graph_ms(chain, 10, 5)}
+
+    def host_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    wall = {"kernel": host_ms(lambda: probe_ops.compact_probe_plan(
+                rows, block, c)),
+            "chain": host_ms(lambda: chain().tolist())}
+    n_bytes = rows.nbytes + 3 * 8
+    record = {
+        "name": probe_kernel.PLAN_COUNTS_NAME, "route": "cuda",
+        "source": probe_kernel.PLAN_COUNTS_SOURCE,
+        "replaces": probe_kernel.PLAN_COUNTS_REPLACES, "max_abs_err": 0,
+        "ms": t_kernel["ms"], "plain_ms": t_chain["ms"],
+        "bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "library_ms": t_chain["ms"],
+    }
+    GRAPH_MS[probe_kernel.PLAN_COUNTS_NAME] = t_kernel["graph_ms"]
+    GRAPH_MS[probe_kernel.PLAN_COUNTS_NAME + " (L2 cold)"] = \
+        t_kernel["cold_ms"]
+    GRAPH_MS["the plan's ATen chain"] = t_chain["graph_ms"]
+    del scratch, flush
+    torch.cuda.empty_cache()
+    print(f"phase 2i plan counts: ok (kernel == plain == the host planner, "
+          f"tolerance 0; runs of the (256, 4, 200) streams: {runs}) — on the "
+          f"IDL stream ({rows.numel()} probes): kernel "
+          f"{json.dumps(t_kernel)}, bound {record['bound_ms']:.6f} ms "
+          f"({n_bytes} B), the ATen chain it replaced (the plain version) "
+          f"{json.dumps(t_chain)}; compact_probe_plan host wall ms, its "
+          f"read included: {json.dumps(wall)}")
     return [record]
 
 
@@ -4777,6 +4881,7 @@ def main() -> None:
     engine_archive = log_uniform_archive(cfg.n_files, ARCHIVE_SEED)
     kernels += wide_kernels_phase(cfg, engine_archive, dev)
     kernels += rambo_merge_phase(dev)
+    kernels += plan_counts_phase(cfg, dev)
     torch.cuda.empty_cache()
     launches, full_eng = main_path_phase(cfg, archive, dev)
     paths = [launches]

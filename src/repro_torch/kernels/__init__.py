@@ -14,6 +14,7 @@ def launch_counts() -> dict:
     return {probe_kernel.NAME: probe_kernel.launches,
             probe_kernel.BIT_MODE_NAME: probe_kernel.bit_mode_launches,
             probe_kernel.BITS_NAME: probe_kernel.bits_launches,
+            probe_kernel.PLAN_COUNTS_NAME: probe_kernel.plan_counts_launches,
             ins_kernel.NAME: ins_kernel.launches,
             ins_kernel.ROUNDS_NAME: ins_kernel.round_launches,
             wm_kernel.NAME: wm_kernel.launches,

@@ -27,6 +27,7 @@ SOURCES = {
     "gather_planned_rows": CSRC / "gather_planned_rows.cu",
     "idl_locations": CSRC / "idl_locations.cu",
     "insert_planned": CSRC / "insert_planned.cu",
+    "probe_plan_counts": CSRC / "probe_plan_counts.cu",
     "probe_planned_bits": CSRC / "probe_planned_bits.cu",
     "rambo_merge": CSRC / "rambo_merge.cu",
     "window_min": CSRC / "window_min.cu",

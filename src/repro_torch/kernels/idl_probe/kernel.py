@@ -1,5 +1,6 @@
-"""Wrappers of the CUDA kernels ``csrc/gather_planned_rows.cu`` and
-``csrc/probe_planned_bits.cu``, and their operand.
+"""Wrappers of the CUDA kernels ``csrc/gather_planned_rows.cu``,
+``csrc/probe_planned_bits.cu`` and ``csrc/probe_plan_counts.cu``, and their
+operand.
 
 Both kernels take the probe stream itself, a ``(..., η, n_k)`` int64 tensor
 in probe order, and write one answer per key: the AND over the η
@@ -13,9 +14,10 @@ replaces the flat-filter Pallas kernel ``probe_runs`` (bits of the packed
 words, one thread per key). No run plan, pad lane or probe
 index reaches the card. The main path's operand is a
 :class:`CompactProbePlan`, which holds the stream with its smallest and
-largest element on the host; a bare tensor's are read from the device. A
-CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel or raises.
+largest element on the host; a bare tensor's are read from the device.
+``probe_plan_counts`` computes those two and the planner's run count in
+one pass over the stream (:func:`plan_counts`). A CPU tensor takes the
+plain version (:mod:`.ref`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,18 +42,26 @@ BITS_NAME = "probe_planned_bits"
 BITS_SOURCE = "src/repro_torch/csrc/probe_planned_bits.cu"
 BITS_REPLACES = "src/repro/kernels/idl_probe/kernel.py:149"
 
+PLAN_COUNTS_NAME = "probe_plan_counts"
+PLAN_COUNTS_SOURCE = "src/repro_torch/csrc/probe_plan_counts.cu"
+PLAN_COUNTS_REPLACES = None   # the JAX package plans with numpy
+PLAN_COUNTS_BLOCKS = 512     # block records a workspace holds
+
 # Kernel launches so far, one counter per kernel (reset and read by callers
 # that must show the kernel ran); they count launches only, never the plain
 # versions.
 launches = 0            # gather_planned_rows
 bit_mode_launches = 0   # gather_planned_bits, its bit mode
 bits_launches = 0       # probe_planned_bits
+plan_counts_launches = 0  # probe_plan_counts
 
 # the C entry points' arguments, the stream last
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BITS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PLAN_COUNTS_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + \
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -75,28 +85,54 @@ class CompactProbePlan:
         """(n_runs,) int32 probes per run in the planner's run order. Built
         on demand (a device pass and a copy to the host), for the parity
         tests; the serve path does not call it."""
-        starts = torch.nonzero(run_starts(
+        starts = torch.nonzero(ref.run_starts(
             self.rows, self.block_bits, self.probes_per_run))[:, 0]
         ends = torch.cat([starts[1:], starts.new_tensor([self.n_probes])])
         return (ends - starts).to(torch.int32).cpu().numpy()
 
 
-def run_starts(rows: torch.Tensor, block_bits: int,
-               probes_per_run: int) -> torch.Tensor:
-    """Flat bool mask of the probes that open a run of the (..., n) stream
-    ``rows``, on its device: the reference planner's arithmetic. A run
-    starts at each stream's start and wherever the block (``rows //
-    block_bits``) changes, and is split every ``probes_per_run`` probes."""
-    flat = rows.reshape(-1)
-    if flat.numel() == 0:
-        return torch.zeros_like(flat, dtype=torch.bool)
-    blocks = flat // block_bits
-    idx = torch.arange(flat.numel(), device=flat.device)
-    start = torch.ones_like(flat, dtype=torch.bool)
-    start[1:] = blocks[1:] != blocks[:-1]
-    start[::rows.shape[-1]] = True           # a run never crosses streams
-    pos_in_run = idx - torch.cummax(torch.where(start, idx, 0), 0).values
-    return pos_in_run % probes_per_run == 0
+def plan_counts(rows: torch.Tensor, block_bits: int,
+                probes_per_run: int) -> torch.Tensor:
+    """(3,) int64 on the stream's device: the reference planner's run count
+    of the non-empty (..., n) int64 probe stream ``rows`` (its leading dims
+    are streams, planned in blocks of ``block_bits`` and runs of at most
+    ``probes_per_run``), its smallest element and its largest. One launch
+    of ``probe_plan_counts`` on a CUDA stream; the plain version on a CPU
+    one."""
+    if rows.dtype != torch.int64 or rows.dim() < 1 or rows.numel() == 0 \
+            or block_bits < 1 or probes_per_run < 1:
+        raise ValueError(
+            f"{PLAN_COUNTS_NAME}: want a non-empty int64 stream and sizes of "
+            f"at least 1, got {tuple(rows.shape)} {rows.dtype}, block_bits "
+            f"{block_bits}, probes_per_run {probes_per_run}")
+    if rows.device.type == "cpu":
+        return ref.plan_counts_ref(rows, block_bits, probes_per_run)
+    if not rows.is_contiguous():
+        raise ValueError(f"{PLAN_COUNTS_NAME}: the stream must be contiguous")
+    out = torch.empty((3,), dtype=torch.int64, device=rows.device)
+    build.launch(PLAN_COUNTS_NAME, _PLAN_COUNTS_ARGTYPES, rows.device,
+                 rows.data_ptr(), rows.numel(), rows.shape[-1], block_bits,
+                 probes_per_run, _workspace(rows.device).data_ptr(),
+                 PLAN_COUNTS_BLOCKS, out.data_ptr())
+    global plan_counts_launches
+    plan_counts_launches += 1
+    return out
+
+
+def _workspace(device: torch.device) -> torch.Tensor:
+    """The ``probe_plan_counts`` workspace of the current stream of
+    ``device``: zeroed once, and left zeroed by every launch. One a stream,
+    so launches that may overlap never share one."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(
+            (1 + 5 * PLAN_COUNTS_BLOCKS,), dtype=torch.int64, device=device)
+    return ws
+
+
+_WORKSPACES: dict = {}
 
 
 def gather_planned_rows(matrix: torch.Tensor,

@@ -5,10 +5,11 @@ Both kernels take the probe stream in probe order and AND over η
 themselves, so no run plan reaches the card.
 
 * :func:`compact_probe_plan` — the serve path's plan, built on the
-  matrix's device with torch ops alone: the stream itself (the kernels'
-  operand) and the reference planner's counters (``n_runs``, ``n_probes``;
+  matrix's device: the stream itself (the kernels' operand) and the
+  reference planner's counters (``n_runs``, ``n_probes``;
   :meth:`CompactProbePlan.run_lengths` on demand, for the parity tests),
-  so the ``locality.*`` counters stay the reference's; one host wait.
+  so the ``locality.*`` counters stay the reference's; on a CUDA stream
+  one ``probe_plan_counts`` launch and one host wait.
 * :func:`plan_probe_runs` — the reference's numpy planner, verbatim and
   held by its parity tests; off the serve path. :func:`gather_planned_rows`
   and :func:`probe_membership` execute its plans all the same: their valid
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.kernels.idl_probe import kernel, ref
 from repro_torch.kernels.idl_probe.kernel import CompactProbePlan
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -120,8 +122,10 @@ def compact_probe_plan(
     locations (``block_bits`` = bits per block); leading dims are streams,
     planned independently as :func:`plan_probe_runs` plans them, so the
     run count and run lengths equal its own. The stream is never copied to
-    the host: on a CUDA tensor the host waits once, for the run count and
-    the smallest and largest element, read together.
+    the host: on a CUDA tensor one ``probe_plan_counts`` launch computes
+    the run count and the smallest and largest element, and the host waits
+    once, to read them. Each plan counts in ``index.probe_plans{path=
+    kernel}`` (a CUDA stream) or ``{path=plain}`` (a CPU one).
     """
     rows = rows.to(torch.int64)
     if rows.dim() == 1:
@@ -129,13 +133,28 @@ def compact_probe_plan(
     rows = rows.contiguous()
     n_runs, lo, hi = 0, None, None
     if rows.numel():
-        n_runs, lo, hi = torch.stack([
-            kernel.run_starts(rows, block_bits, probes_per_run).sum(),
-            rows.min(), rows.max()]).tolist()
+        n_runs, lo, hi = kernel.plan_counts(
+            rows, block_bits, probes_per_run).tolist()
+    _count_plan("plain" if rows.device.type == "cpu" else "kernel")
     return CompactProbePlan(
         rows=rows, n_probes=rows.numel(), n_runs=n_runs,
         eta=math.prod(rows.shape[:-1]), n_keys=rows.shape[-1], min_row=lo,
         max_row=hi, block_bits=block_bits, probes_per_run=probes_per_run)
+
+
+def _count_plan(path: str) -> None:
+    """Count one compact plan in ``index.probe_plans{path=...}`` of the
+    process registry (its handle bound again if the registry was
+    replaced)."""
+    reg = obs_metrics.DEFAULT
+    bound = _PLANS.get(path)
+    if bound is None or bound[0] is not reg:
+        bound = _PLANS[path] = (reg, reg.counter("index.probe_plans",
+                                                 path=path))
+    bound[1].inc()
+
+
+_PLANS: dict = {}
 
 
 def probe_order(plan: ProbePlan, n_blocks: int, device) -> torch.Tensor:

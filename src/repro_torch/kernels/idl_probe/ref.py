@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the ``gather_planned_rows`` kernel (and its bit
-mode) and the ``probe_planned_bits`` kernel, the reference's run-plan probe
-layout, and the flat-filter probe oracle."""
+mode), the ``probe_planned_bits`` kernel and the ``probe_plan_counts``
+kernel (the planner's run count, on the device), the reference's run-plan
+probe layout, and the flat-filter probe oracle."""
 
 from __future__ import annotations
 
@@ -49,6 +50,33 @@ def probe_bits_and_ref(words: torch.Tensor, locs: torch.Tensor
         return gather_bits_and_ref(words, locs)
     bits = (words[locs >> 5] >> (locs & 31)) & 1
     return and_reduce(bits, dim=-2).to(torch.int32)
+
+
+def run_starts(rows: torch.Tensor, block_bits: int,
+               probes_per_run: int) -> torch.Tensor:
+    """Flat bool mask of the probes that open a run of the (..., n) stream
+    ``rows``, on its device: the reference planner's arithmetic. A run
+    starts at each stream's start and wherever the block (``rows //
+    block_bits``) changes, and is split every ``probes_per_run`` probes."""
+    flat = rows.reshape(-1)
+    if flat.numel() == 0:
+        return torch.zeros_like(flat, dtype=torch.bool)
+    blocks = flat // block_bits
+    idx = torch.arange(flat.numel(), device=flat.device)
+    start = torch.ones_like(flat, dtype=torch.bool)
+    start[1:] = blocks[1:] != blocks[:-1]
+    start[::rows.shape[-1]] = True           # a run never crosses streams
+    pos_in_run = idx - torch.cummax(torch.where(start, idx, 0), 0).values
+    return pos_in_run % probes_per_run == 0
+
+
+def plan_counts_ref(rows: torch.Tensor, block_bits: int,
+                    probes_per_run: int) -> torch.Tensor:
+    """(3,) int64 on the stream's device: the planner's run count of the
+    non-empty (..., n) int64 probe stream ``rows`` (:func:`run_starts`
+    summed), its smallest element and its largest."""
+    return torch.stack([run_starts(rows, block_bits, probes_per_run).sum(),
+                        rows.min(), rows.max()])
 
 
 def probe_runs_ref(

@@ -126,6 +126,180 @@ def test_probe_kernels_empty_batch_no_launch(cuda):
     assert (probe_kernel.launches, probe_kernel.bits_launches) == before
 
 
+def _plan_stream(rng, p, n, block, kind, c):
+    """A (p, n) int64 probe stream whose runs the planner splits as
+    ``kind`` says (the CPU tests' shapes)."""
+    if kind == "long_runs":              # sorted: runs split at C
+        return np.sort(rng.integers(0, 3 * block, size=(p, n)), axis=1)
+    if kind == "repeat_across":          # a stream ends in the next's block
+        rows = np.sort(rng.integers(0, 2 * block, size=(p, n)), axis=1)
+        rows[1:, 0] = rows[:-1, -1]
+        return rows
+    if kind == "split":                  # segments of C + 1 to 3C probes
+        lengths = rng.integers(c + 1, 3 * c + 1, size=p * n // (c + 1) + 1)
+        blocks = np.repeat(np.arange(lengths.size), lengths)[:p * n]
+        return (blocks * block + rng.integers(0, block, size=p * n)
+                ).reshape(p, n)
+    if kind == "one_block":              # every stream in block 0
+        return rng.integers(0, block, size=(p, n))
+    return rng.integers(-block, 64 * block, size=(p, n))
+
+
+@pytest.mark.parametrize("p,n,block,c,kind", [
+    (3, 97, 16, 8, "long_runs"),
+    (8, 200, 512, 128, "scattered"),     # negative probes too
+    (1, 1, 4, 8, "scattered"),           # one probe
+    (1, 300, 64, 32, "long_runs"),
+    (4, 50, 32, 128, "repeat_across"),
+    (6, 40, 1, 32, "scattered"),
+    (700, 1, 8, 128, "long_runs"),       # n = 1, many streams (dedup)
+    (9, 31, 64, 8, "long_runs"),         # n around a warp's 32 lanes
+    (9, 32, 64, 8, "long_runs"),
+    (9, 33, 64, 8, "long_runs"),
+    (5, 257, 64, 16, "long_runs"),
+    (4, 120, 8, 16, "split"),            # segments split two or three times
+    (3, 257, 64, 5, "split"),
+    (5, 64, 1 << 20, 16, "one_block"),   # runs break at each stream's edge
+    (6, 33, 8, 128, "repeat_across"),
+    (1024, 200, 512, 128, "split"),      # a serve batch's 204,800 probes
+    (2, 1_500_000, 1 << 12, 128, "long_runs"),   # 733 probes a warp
+    (5, 300_000, 1 << 20, 128, "split"),  # segments across many chunks
+])
+def test_plan_counts_kernel_vs_plain(cuda, p, n, block, c, kind):
+    """``probe_plan_counts`` against its plain version on the card and the
+    host planner's run count and numpy's min and max, tolerance 0: one
+    launch a call, (P, n) and (B, η, n) streams alike, the workspace left
+    ready for the next call."""
+    rng = np.random.default_rng(p * 7 + n)
+    rows = _plan_stream(rng, p, n, block, kind, c)
+    want = probe_ops.plan_probe_runs(rows, block_bits=block,
+                                     probes_per_run=c)
+    stream = torch.as_tensor(rows, device=cuda)
+    for shaped in (stream, stream.reshape(1, p, n)):
+        before = probe_kernel.plan_counts_launches
+        got = probe_kernel.plan_counts(shaped, block, c)
+        assert probe_kernel.plan_counts_launches == before + 1
+        assert got.dtype == torch.int64 and got.device == stream.device
+        assert got.tolist() == [want.n_runs, rows.min(), rows.max()]
+        assert torch.equal(got, probe_ref.plan_counts_ref(shaped, block, c))
+
+
+def test_plan_counts_kernel_rejects_operands(cuda):
+    """An empty, int32 or non-contiguous CUDA stream and sizes below 1
+    raise before anything is launched."""
+    rows = torch.arange(60, dtype=torch.int64, device=cuda).reshape(6, 10)
+    before = probe_kernel.plan_counts_launches
+    for bad, block, c in ((rows[:0], 4, 8), (rows.to(torch.int32), 4, 8),
+                          (rows.t(), 4, 8), (rows, 0, 8), (rows, 4, 0)):
+        with pytest.raises(ValueError):
+            probe_kernel.plan_counts(bad, block, c)
+    assert probe_kernel.plan_counts_launches == before
+
+
+def _probe_plans():
+    """``{path: n}`` compact plans counted in ``index.probe_plans``."""
+    from repro_torch.obs import metrics as t_metrics
+
+    snap = t_metrics.DEFAULT.snapshot()
+    return {p: t_metrics.counter_total(snap, "index.probe_plans",
+                                       {"path": p})
+            for p in ("kernel", "plain")}
+
+
+def _no_cummax(*args, **kwargs):
+    raise AssertionError("torch.cummax on the compact plan's CUDA path")
+
+
+def _serve_query_plan(kind, device):
+    """The query plan of a 256-read batch of 230 bases in the benchmark's
+    ``bitsliced-idl`` / ``bitsliced-rh`` (a (2^26, 32) matrix, L 2^17) or
+    ``rambo-idl`` (the bit probe of the (2^22, 320) copy, L 2^12)
+    deployment."""
+    from repro_torch.index import query
+
+    if kind == "rambo":
+        cfg = idl.IDLConfig(k=31, t=16, L=1 << 12, eta=4, m=1 << 27)
+        return query.plan_query(cfg, "idl", (256, 230), (1 << 22, 320),
+                                bit_probe=True, device=device)
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 17, eta=4, m=1 << 26)
+    return query.plan_query(cfg, kind, (256, 230), (1 << 26, 32),
+                            bit_probe=False, lane32=True, device=device)
+
+
+@pytest.mark.parametrize("kind", ["idl", "rh", "rambo"])
+def test_compact_plan_of_a_serve_batch_on_cuda(cuda, monkeypatch, kind):
+    """``QueryPlan.compact_plan`` of a real serve batch's (256, 4, 200)
+    stream (IDL and RH rows, RAMBO's bit locations): one
+    ``probe_plan_counts`` launch and no ``torch.cummax``, counted in
+    ``index.probe_plans{path=kernel}``, its counters the host planner's
+    and the plain version's; then ``locality.*`` of a served batch equal
+    the host planner's."""
+    from repro_torch.index import query
+    from repro_torch.obs import metrics as t_metrics
+
+    qplan = _serve_query_plan(kind, cuda)
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    starts = rng.integers(0, genome.size - 230, size=256)
+    reads = torch.as_tensor(np.stack([genome[s:s + 230] for s in starts]),
+                            device=cuda)
+    monkeypatch.setattr(torch, "cummax", _no_cummax)
+    launches, plans = probe_kernel.plan_counts_launches, _probe_plans()
+    cplan = qplan.compact_plan(reads)
+    assert probe_kernel.plan_counts_launches == launches + 1
+    assert _probe_plans() == {"kernel": plans["kernel"] + 1,
+                              "plain": plans["plain"]}
+    monkeypatch.undo()
+    rows = cplan.rows.cpu().numpy()
+    assert rows.shape == (256, 4, 200)
+    block = qplan.rows_per_block * (32 if qplan.bit_probe else 1)
+    want = probe_ops.plan_probe_runs(rows.reshape(-1, 200), block_bits=block,
+                                     probes_per_run=qplan.probes_per_run)
+    assert (cplan.n_runs, cplan.min_row, cplan.max_row) == \
+        (want.n_runs, rows.min(), rows.max())
+    assert want.n_runs < want.n_probes or kind == "rh"
+    assert probe_kernel.plan_counts(
+        cplan.rows, block, qplan.probes_per_run).tolist() == \
+        probe_ref.plan_counts_ref(cplan.rows, block,
+                                  qplan.probes_per_run).tolist()
+    # a served batch's locality counters
+    monkeypatch.setattr(t_metrics, "DEFAULT", t_metrics.Registry())
+    monkeypatch.setattr(query, "_LOCALITY_HANDLES", {})
+    matrix = torch.zeros(qplan.matrix_shape, dtype=torch.int32, device=cuda)
+    qplan.execute(matrix, reads, backend="idl_probe")
+    snap = t_metrics.DEFAULT.snapshot()
+    where = {"scheme": kind if kind != "rambo" else "idl", "op": "query"}
+    assert t_metrics.counter_total(snap, "locality.probe_runs", where) == \
+        want.n_runs
+    assert t_metrics.counter_total(snap, "locality.planned_tile_bytes",
+                                   where) == want.n_runs * qplan.block_bytes
+    assert t_metrics.counter_total(snap, "locality.probes", where) == \
+        want.n_probes
+    assert t_metrics.counter_total(snap, "index.probe_plans",
+                                   {"path": "kernel"}) == 1
+
+
+def test_served_batches_launch_plan_counts_once_each(cuda, monkeypatch):
+    """The service over a CUDA bit-sliced index and a RAMBO one: one
+    ``probe_plan_counts`` launch and one ``index.probe_plans{path=kernel}``
+    a batch, and no ``torch.cummax``."""
+    from repro_torch.serving import GeneSearchService, ServiceConfig
+
+    genomes, queries = _tier_reads()
+    for kind in ("bitsliced", "rambo"):
+        eng = _tier_engine(kind, cuda, genomes)
+        svc = GeneSearchService(eng, ServiceConfig(max_batch=4))
+        monkeypatch.setattr(torch, "cummax", _no_cummax)
+        launches, plans = probe_kernel.plan_counts_launches, _probe_plans()
+        svc.search(queries)
+        monkeypatch.undo()
+        n = len(svc.batch_stats)
+        assert n > 1
+        assert probe_kernel.plan_counts_launches == launches + n
+        assert _probe_plans() == {"kernel": plans["kernel"] + n,
+                                  "plain": plans["plain"]}
+
+
 @pytest.mark.parametrize("n_rows,w,rpb,c,n_bits", [
     (256, 3, 16, 32, 900), (1 << 12, 1, 64, 128, 3000),
     (1 << 10, 32, 64, 128, 20000), (512, 8, 8, 40, 777),

@@ -310,8 +310,8 @@ class TestFabricServing:
             assert dev["max_memory_allocated"] == 0
             assert dev["launches"] == {
                 "gather_planned_rows": 0, "gather_planned_bits": 0,
-                "probe_planned_bits": 0, "insert_planned": 0,
-                "insert_with_plan": 0, "window_min": 0,
+                "probe_planned_bits": 0, "probe_plan_counts": 0,
+                "insert_planned": 0, "insert_with_plan": 0, "window_min": 0,
                 "idl_locations32": 0, "idl_locations64": 0,
                 "rambo_merge_coverage": 0}
 

@@ -120,13 +120,20 @@ def test_gather_planned_rows_rejects_foreign_blocks(rng):
 
 # -- the compact probe plan and the AND over eta ----------------------------
 
-def _probe_stream(rng, p, n, block, kind):
+def _probe_stream(rng, p, n, block, kind, c=None):
     if kind == "long_runs":              # sorted: runs split at C
         return np.sort(rng.integers(0, 3 * block, size=(p, n)), axis=1)
     if kind == "repeat_across":          # a stream ends in the next's block
         rows = np.sort(rng.integers(0, 2 * block, size=(p, n)), axis=1)
         rows[1:, 0] = rows[:-1, -1]
         return rows
+    if kind == "split":                  # segments of C + 1 to 3C probes
+        lengths = rng.integers(c + 1, 3 * c + 1, size=p * n // (c + 1) + 1)
+        blocks = np.repeat(np.arange(lengths.size), lengths)[:p * n]
+        return (blocks * block + rng.integers(0, block, size=p * n)
+                ).reshape(p, n)
+    if kind == "one_block":              # every stream in block 0
+        return rng.integers(0, block, size=(p, n))
     return rng.integers(0, 64 * block, size=(p, n))
 
 
@@ -146,7 +153,10 @@ def test_compact_probe_plan_field_by_field(rng, p, n, block, c, kind):
         assert (want.block_ids[:-1] == want.block_ids[1:]).any()
     if kind == "long_runs":
         assert (want.run_lengths == c).any()
+    before = _probe_plans()
     got = probe_ops.compact_probe_plan(torch.from_numpy(rows), block, c)
+    assert _probe_plans() == {"plain": before["plain"] + 1,
+                              "kernel": before["kernel"]}
     assert (got.n_runs, got.n_probes, got.eta, got.n_keys) == \
         (want.n_runs, want.n_probes, want.eta, want.n_keys)
     assert (got.block_bits, got.probes_per_run) == (block, c)
@@ -162,6 +172,68 @@ def test_compact_probe_plan_field_by_field(rng, p, n, block, c, kind):
             torch.from_numpy(rows.reshape(2, p // 2, n)), block, c)
         assert (cube.n_runs, cube.eta) == (want.n_runs, want.eta)
         np.testing.assert_array_equal(cube.run_lengths(), want.run_lengths)
+
+
+def _probe_plans():
+    """``{path: n}`` compact plans counted in ``index.probe_plans`` so far."""
+    from repro_torch.obs import metrics as t_metrics
+
+    snap = t_metrics.DEFAULT.snapshot()
+    return {p: t_metrics.counter_total(snap, "index.probe_plans",
+                                       {"path": p})
+            for p in ("kernel", "plain")}
+
+
+@pytest.mark.parametrize("p,n,block,c,kind", [
+    (3, 97, 16, 8, "long_runs"),         # the compact plan's shapes
+    (8, 200, 512, 128, "scattered"),
+    (1, 1, 4, 8, "scattered"),           # one probe
+    (1, 300, 64, 32, "long_runs"),
+    (4, 50, 32, 128, "repeat_across"),
+    (6, 40, 1, 32, "scattered"),
+    (700, 1, 8, 128, "long_runs"),       # n = 1, many streams (dedup)
+    (9, 31, 64, 8, "long_runs"),         # n around a warp's 32 lanes
+    (9, 32, 64, 8, "long_runs"),
+    (9, 33, 64, 8, "long_runs"),
+    (5, 257, 64, 16, "long_runs"),
+    (4, 120, 8, 16, "split"),            # segments split two or three times
+    (3, 257, 64, 5, "split"),
+    (5, 64, 1 << 20, 16, "one_block"),   # runs break at each stream's edge
+    (6, 33, 8, 128, "repeat_across"),
+])
+def test_plan_counts_ref_vs_planner(rng, p, n, block, c, kind):
+    """The ``probe_plan_counts`` kernel's plain version: the reference
+    planner's run count and the numpy min and max of the stream, as a
+    (3,) int64 tensor, for (P, n) and (B, η, n) streams."""
+    rows = _probe_stream(rng, p, n, block, kind, c)
+    want = j_probe_ops.plan_probe_runs(rows, block_bits=block,
+                                       probes_per_run=c)
+    if kind == "split":
+        assert (want.run_lengths == c).sum() >= want.n_runs // 3
+    if kind == "one_block":
+        assert want.n_runs == p * -(-n // c)
+    for stream in (rows, rows.reshape(1, p, n)):
+        got = probe_kernel.plan_counts(torch.from_numpy(stream), block, c)
+        assert got.dtype == torch.int64 and got.shape == (3,)
+        assert got.tolist() == [want.n_runs, rows.min(), rows.max()]
+        assert torch.equal(got, probe_ref.plan_counts_ref(
+            torch.from_numpy(stream), block, c))
+
+
+def test_plan_counts_rejects_operands():
+    """An empty stream, int32 probes and sizes below 1 raise, on either
+    version's path; negative probes floor to their block as the planner's
+    ``//`` does (blocks -3, -2, -1, 0, 0, 1)."""
+    good = torch.arange(12, dtype=torch.int64).reshape(3, 4)
+    for rows, block, c in ((good[:0], 4, 8), (good.to(torch.int32), 4, 8),
+                           (good, 0, 8), (good, 4, 0),
+                           (torch.tensor(5), 4, 8)):
+        with pytest.raises(ValueError):
+            probe_kernel.plan_counts(rows, block, c)
+    rows = np.array([[-9, -8, -1, 0, 3, 4]])
+    want = j_probe_ops.plan_probe_runs(rows, block_bits=4, probes_per_run=8)
+    assert probe_kernel.plan_counts(torch.from_numpy(rows), 4, 8).tolist() \
+        == [want.n_runs, -9, 4] == [5, -9, 4]    # truncation would give 3
 
 
 def test_compact_probe_plan_empty():
