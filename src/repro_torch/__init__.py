@@ -16,7 +16,9 @@ Integer conventions (torch on the CPU has no ``>>`` for unsigned types):
   ``[0, 2**32)``, masked with ``& 0xFFFFFFFF`` after every product and sum,
   so shifts are logical and the ``0xFFFFFFFF`` empty-bin sentinel sorts
   last;
-* locations are ``int64`` in ``[0, 2**32)``;
+* locations are ``int64`` in ``[0, m)``: the reference's uint32 ones up
+  to m = 2**32, and past it on the 64-bit path, where the reference's
+  wrap (a flat filter of 2**35 bits);
 * packed bit-matrix words are ``int32`` tensors holding the same 32 bits
   as the reference's ``uint32`` words (compare with ``.view(np.uint32)``).
 

@@ -9,8 +9,11 @@ The 64-bit path (``idl_locations_rolling`` and the ``rh``, ``lsh`` and
 path (``*_rolling32``) uses only 32-bit lane arithmetic.
 
 Codes may carry leading batch axes: ``(..., n)`` uint8 codes give
-``(..., η, n - k + 1)`` int64 locations in ``[0, 2**32)`` (the reference's
-uint32 locations: at m = 2**32 they reach 2**32 - 1). The rolling
+``(..., η, n - k + 1)`` int64 locations in ``[0, m)``: the reference's
+uint32 locations wherever m <= 2**32 (at m = 2**32 they reach 2**32 - 1).
+Past that the 64-bit path's locations stay 64-bit (a flat filter of m =
+2**35 bits), where the reference's wrap mod 2**32; the 32-bit lane path
+keeps m <= 2**32. The rolling
 locations of the ``idl`` and ``rh`` schemes, on both paths, take ``(n,)``
 or ``(B, n)`` codes and run as one fused kernel launch on a CUDA tensor
 (:mod:`repro_torch.kernels.idl_locations`; its plain version on a CPU
@@ -30,7 +33,6 @@ _SALT_ANCHOR = 0xA17C
 _SALT_LOCAL = 0x10CA
 _SALT_MH = 0x0D0F
 _SALT_RH = 0x5EED
-_M32 = hashing.M32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +93,8 @@ def combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
 
     align=True: ρ₁ picks a block index in [m'/L], scaled by L, so the
     locality window is one block. align=False: paper layout, ρ₁ uniform over
-    [m' − L]. Sums wrap mod 2**32 as the reference's uint32 sums do.
+    [m' − L]. The sums are not wrapped: they lie in [0, m) at every m,
+    where the reference's uint32 sums wrap past 2**32 (equal below it).
     """
     locs = []
     for j in range(cfg.eta):
@@ -103,7 +106,7 @@ def combine(cfg: IDLConfig, mh: torch.Tensor, kmer_arr: torch.Tensor
             anchor = hashing.hash_to_range(
                 mh[..., j, :], _SALT_ANCHOR + 31 * j, cfg.anchor_range)
         local = hashing.hash_to_range(kmer_arr, _SALT_LOCAL + 31 * j, cfg.L)
-        locs.append((anchor + local + j * cfg.m_part) & _M32)
+        locs.append(anchor + local + j * cfg.m_part)
     return torch.stack(locs, dim=-2)
 
 
@@ -165,8 +168,8 @@ def idl_bbf_locations_rolling(cfg: IDLConfig, codes: torch.Tensor,
     blk = hashing.hash_to_range(
         kmer_arr, _SALT_LOCAL, n_blocks_in_window) * block_bits
     return torch.stack([
-        (window + blk + hashing.hash_to_range(kmer_arr, _SALT_RH + 97 * j,
-                                              block_bits)) & _M32
+        window + blk + hashing.hash_to_range(kmer_arr, _SALT_RH + 97 * j,
+                                             block_bits)
         for j in range(cfg.eta)
     ], dim=-2)
 
@@ -174,8 +177,8 @@ def idl_bbf_locations_rolling(cfg: IDLConfig, codes: torch.Tensor,
 def rh_locations(cfg: IDLConfig, kmer_arr: torch.Tensor) -> torch.Tensor:
     """Baseline partitioned-RH locations (MurmurHash-style), same layout."""
     return torch.stack([
-        (hashing.hash_to_range(kmer_arr, _SALT_RH + 31 * j, cfg.m_part)
-         + j * cfg.m_part) & _M32
+        hashing.hash_to_range(kmer_arr, _SALT_RH + 31 * j, cfg.m_part)
+        + j * cfg.m_part
         for j in range(cfg.eta)
     ], dim=-2)
 
@@ -192,8 +195,8 @@ def lsh_locations_rolling(cfg: IDLConfig, codes: torch.Tensor
     loss)."""
     mh = _minhash_rolling(cfg, kmers.pack_kmers(codes, cfg.t))
     return torch.stack([
-        (hashing.hash_to_range(mh[..., j, :], _SALT_ANCHOR + 31 * j,
-                               cfg.m_part) + j * cfg.m_part) & _M32
+        hashing.hash_to_range(mh[..., j, :], _SALT_ANCHOR + 31 * j,
+                              cfg.m_part) + j * cfg.m_part
         for j in range(cfg.eta)
     ], dim=-2)
 

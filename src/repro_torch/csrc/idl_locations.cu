@@ -9,10 +9,15 @@
 // idl_locations_rolling / rh_locations_rolling with repro/core/minhash.py's
 // doph_minhash / minhash_exact / densify_rotation (64-bit hashes). For every
 // row of a contiguous (rows, n) uint8 code tensor it writes the
-// (eta, n - k + 1) int64 locations in [0, 2^32):
+// (eta, n - k + 1) int64 locations in [0, m):
 //
-//   IDL  psi_j(x) = (j * m' + rho1_j(MinHash_j(x)) + rho2_j(x)) mod 2^32
-//   RH   psi_j(x) = (j * m' + h_j(x) mod-range m')          mod 2^32
+//   IDL  psi_j(x) = j * m' + rho1_j(MinHash_j(x)) + rho2_j(x)
+//   RH   psi_j(x) = j * m' + h_j(x) mod-range m'
+//
+// taken mod 2^32 on the 32-bit lane path (m <= 2^32 there, so the sums
+// never wrap) and left 64-bit on the 64-bit path, whose flat filters reach
+// m = 2^35 bits (the JAX package's uint32 sums wrap there; below 2^32 the
+// two agree).
 //
 // MinHash_j is the rolling minimum over the kmer's w = k - t + 1 sub-kmers
 // (t-mers): in DOPH mode one hash per sub-kmer split into eta bins (the
@@ -305,7 +310,7 @@ locations_kernel(const uint8_t* __restrict__ codes, int64_t* __restrict__ out,
       if (!cfg.rh)
         loc += range64(mh[j], cfg.anchor_seed[j], cfg.anchor.m) * cfg.scale;
       loc += static_cast<uint64_t>(j) * cfg.m_part;
-      dst[j * n_k] = static_cast<int64_t>(loc & 0xFFFFFFFFull);
+      dst[j * n_k] = static_cast<int64_t>(loc);
     }
   }
 }

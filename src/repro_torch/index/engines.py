@@ -60,7 +60,7 @@ class _StateView:
     def coverage_batch(self, reads, theta: float = 1.0, *, valid=None,
                        need=None, backend: str = "idl_probe",
                        dedup: bool = False, mesh=None) -> torch.Tensor:
-        """(B, n_files) bool, (B,) for the flat filter: whether each file's
+        """(B, n_files) bool (the flat filter: (B, 1)): whether each file's
         kmer coverage reaches ``theta``, or ``need`` (B,) hits per row;
         ``valid`` (B, n_kmers) bool excludes padding kmers."""
         per = self.query_batch(reads, backend=backend, dedup=dedup,

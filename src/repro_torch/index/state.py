@@ -190,17 +190,19 @@ def to_engine(state: IndexState):
 def verdicts(meta: StateMeta, per_kmer: torch.Tensor, theta: float = 1.0, *,
              valid=None, need=None) -> torch.Tensor:
     """The verdict rule: an engine's per-kmer ``query_batch`` output ->
-    (B, n_files) bool per-file verdicts, (B,) bool for the single-set flat
-    filter: kmer coverage >= ``theta``. ``valid`` (B, n_kmers) bool
-    excludes padding kmers; ``need`` (B,) int gives per-row hit thresholds
-    overriding ``theta``. Packed bit-sliced masks reduce through
-    ``query.file_match_mask`` (at theta >= 1 the masked AND over the valid
-    kmers, ``need`` unused), every other engine's per-kmer hits through
-    ``query.member_coverage``."""
+    (B, n_files) bool per-file verdicts, kmer coverage >= ``theta``; the
+    single-set flat filter answers as an index of one file, (B, 1).
+    ``valid`` (B, n_kmers) bool excludes padding kmers; ``need`` (B,) int
+    gives per-row hit thresholds overriding ``theta``. Packed bit-sliced
+    masks reduce through ``query.file_match_mask`` (at theta >= 1 the
+    masked AND over the valid kmers, ``need`` unused), every other
+    engine's per-kmer hits through ``query.member_coverage``."""
     if meta.engine == "bitsliced":
         mask = query_mod.file_match_mask(
             per_kmer, theta, valid=valid, need=None if theta >= 1.0 else need)
         return packed.unpack_file_bits(mask, meta.n_files)
+    if meta.engine == "bloom":
+        per_kmer = per_kmer[..., None]
     return query_mod.member_coverage(per_kmer, theta, valid=valid, need=need)
 
 

@@ -147,7 +147,7 @@ def check(cfg: idl.IDLConfig, codes: torch.Tensor, scheme: str,
 
 def locations(cfg: idl.IDLConfig, codes: torch.Tensor, scheme: str, *,
               lane32: bool) -> torch.Tensor:
-    """``(..., η, n - k + 1)`` int64 locations in ``[0, 2**32)`` of every
+    """``(..., η, n - k + 1)`` int64 locations in ``[0, m)`` of every
     stride-1 kmer of ``(..., n)`` uint8 codes, under ``scheme`` (``"idl"``
     or ``"rh"``) on the 32-bit lane path (``lane32``) or the 64-bit hash
     path: one launch on a CUDA tensor, the plain version on a CPU one."""

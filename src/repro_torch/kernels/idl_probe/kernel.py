@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.idl_probe import ref
+from repro_torch.obs import metrics as obs_metrics
 
 NAME = "gather_planned_rows"
 SOURCE = "src/repro_torch/csrc/gather_planned_rows.cu"
@@ -54,6 +55,23 @@ launches = 0            # gather_planned_rows
 bit_mode_launches = 0   # gather_planned_bits, its bit mode
 bits_launches = 0       # probe_planned_bits
 plan_counts_launches = 0  # probe_plan_counts
+
+
+def count(counter: str, path: str) -> None:
+    """Count one event in ``counter{path=...}`` of the process registry
+    (its handle bound again if the registry was replaced): which
+    implementation, the hand-written kernel or its plain version, served a
+    plan (``index.probe_plans``) or a flat filter's probe
+    (``index.bit_probes``)."""
+    reg = obs_metrics.DEFAULT
+    bound = _COUNTERS.get((counter, path))
+    if bound is None or bound[0] is not reg:
+        bound = _COUNTERS[(counter, path)] = (
+            reg, reg.counter(counter, path=path))
+    bound[1].inc()
+
+
+_COUNTERS: dict = {}
 
 # the C entry points' arguments, the stream last
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
@@ -208,12 +226,15 @@ def probe_planned_bits(words: torch.Tensor,
 
     The operand is a :class:`CompactProbePlan` or a bare tensor, as for
     :func:`gather_planned_rows`; a location past the words raises before
-    anything is launched.
+    anything is launched. Each call counts in ``index.bit_probes{path=
+    kernel}`` (a CUDA filter) or ``{path=plain}`` (a CPU one).
     """
     locs, bounds = _operand(operand)
     _check(BITS_NAME, words, (1, 2), locs, bounds, 32 * words.shape[0])
     if words.device.type == "cpu":
+        count("index.bit_probes", "plain")
         return ref.probe_bits_and_ref(words, locs)
+    count("index.bit_probes", "kernel")
     out = _out(words, locs)
     if out.numel():
         w = words.shape[1] if words.dim() == 2 else 1

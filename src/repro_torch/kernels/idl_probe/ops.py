@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.kernels.idl_probe import kernel, ref
 from repro_torch.kernels.idl_probe.kernel import CompactProbePlan
-from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -135,26 +134,12 @@ def compact_probe_plan(
     if rows.numel():
         n_runs, lo, hi = kernel.plan_counts(
             rows, block_bits, probes_per_run).tolist()
-    _count_plan("plain" if rows.device.type == "cpu" else "kernel")
+    kernel.count("index.probe_plans",
+                 "plain" if rows.device.type == "cpu" else "kernel")
     return CompactProbePlan(
         rows=rows, n_probes=rows.numel(), n_runs=n_runs,
         eta=math.prod(rows.shape[:-1]), n_keys=rows.shape[-1], min_row=lo,
         max_row=hi, block_bits=block_bits, probes_per_run=probes_per_run)
-
-
-def _count_plan(path: str) -> None:
-    """Count one compact plan in ``index.probe_plans{path=...}`` of the
-    process registry (its handle bound again if the registry was
-    replaced)."""
-    reg = obs_metrics.DEFAULT
-    bound = _PLANS.get(path)
-    if bound is None or bound[0] is not reg:
-        bound = _PLANS[path] = (reg, reg.counter("index.probe_plans",
-                                                 path=path))
-    bound[1].inc()
-
-
-_PLANS: dict = {}
 
 
 def probe_order(plan: ProbePlan, n_blocks: int, device) -> torch.Tensor:

@@ -695,10 +695,7 @@ class ScatterGatherRouter:
                 for s in range(spec.n_shards)])
             matches = state_mod.verdicts(
                 meta, per, self.config.service.theta).numpy()[0]
-        if matches.ndim == 0:         # the flat filter: one set
-            fids = (0,) if matches else ()
-        else:
-            fids = tuple(int(f) for f in np.flatnonzero(matches))
+        fids = tuple(int(f) for f in np.flatnonzero(matches))
         return service_mod.SearchResult(
             request_id=g.request_id, matches=matches, file_ids=fids,
             n_kmers=g.n_kmers, bucket=bucket, version=self._set_version,

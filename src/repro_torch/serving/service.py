@@ -52,7 +52,7 @@ Port of :mod:`repro.serving.service` for all four engines.
 The default backend is ``"idl_probe"``: per served bucket batch on a CUDA
 index, one kernel launch (``gather_planned_rows`` for the bit-sliced index,
 one per size group for COBS; its bit mode for RAMBO; ``probe_planned_bits``
-for the flat filter).
+for the flat filter, whose verdicts are one file's column).
 """
 
 from __future__ import annotations
@@ -100,11 +100,12 @@ class SearchRequest:
 @dataclasses.dataclass(frozen=True)
 class SearchResult:
     """Engine verdicts for one request: ``matches`` is the engine's ``msmt``
-    row — a (n_files,) bool vector, or a scalar bool for the single-set flat
-    filter — and ``file_ids`` its decoded matching file indices (``(0,)``
-    or ``()`` for the flat filter). ``version`` is the served state's
-    version and ``delta_seq`` the live index's write watermark (0 for a
-    static index): together, the staleness coordinates of the answer.
+    row, a (n_files,) bool vector ((1,): the single-set flat filter answers
+    as an index of one file), and ``file_ids`` its decoded matching file
+    indices (``(0,)`` or ``()`` for the flat filter). ``version`` is the
+    served state's version and ``delta_seq`` the live index's write
+    watermark (0 for a static index): together, the staleness coordinates
+    of the answer.
     ``missing_files`` names the files whose row-probe shard was down when
     a scatter-gather answer was assembled (their entries of ``matches``
     are vacuously False; see :mod:`repro_torch.serving.scatter`); it is
@@ -604,14 +605,11 @@ class GeneSearchService:
         ids, n_kmers = _columns(take)
         n = len(ids)
         hits = out[:n]
-        if hits.ndim == 1:                        # one set: a bool a row
-            fids = [(0,) if hit else () for hit in hits.tolist()]
-        else:
-            # the flat form: a 2-D nonzero costs ten times as much
-            flat, width = np.flatnonzero(hits), hits.shape[1]
-            ends = np.searchsorted(flat, np.arange(n + 1) * width).tolist()
-            col = (flat % width).tolist()
-            fids = [tuple(col[a:b]) for a, b in zip(ends, ends[1:])]
+        # the flat form: a 2-D nonzero costs ten times as much
+        flat, width = np.flatnonzero(hits), hits.shape[1]
+        ends = np.searchsorted(flat, np.arange(n + 1) * width).tolist()
+        col = (flat % width).tolist()
+        fids = [tuple(col[a:b]) for a, b in zip(ends, ends[1:])]
         # positional: (request_id, matches, file_ids, n_kmers, bucket,
         # version, delta_seq), a third cheaper than by keyword
         return [SearchResult(rid, m, f, n_k, bucket, version, delta_seq)

@@ -321,10 +321,11 @@ def test_packed_bloom_index_matches_reference(rng, scheme):
     for backend in ("idl_probe", "torch"):
         np.testing.assert_array_equal(
             eng.query_batch(queries, backend=backend).numpy(), want)
-        for theta in (1.0, 0.6):
+        for theta in (1.0, 0.6):      # one file's column, (B, 1)
             np.testing.assert_array_equal(
                 eng.msmt(queries, theta=theta, backend=backend).numpy(),
-                np.asarray(jeng.msmt(jnp.asarray(queries), theta=theta)))
+                np.asarray(jeng.msmt(jnp.asarray(queries),
+                                     theta=theta))[:, None])
     assert eng.msmt(queries[:3]).all()
     assert float(eng.fill_fraction) == float(jeng.fill_fraction)
     np.testing.assert_array_equal(eng.bits.numpy(), np.asarray(jeng.bits))
@@ -386,8 +387,8 @@ def test_flat_snapshots_both_ways(flat, tmp_path, rng):
         json.load(open(tmp_path / "ref" / "manifest.json"))["meta"]
     for theta in (1.0, 0.6):
         want = np.asarray(jeng.msmt(jnp.asarray(reads), theta=theta))
-        np.testing.assert_array_equal(
-            state_mod.msmt(st, reads, theta=theta).numpy(), want)
+        np.testing.assert_array_equal(      # one file's column, (B, 1)
+            state_mod.msmt(st, reads, theta=theta).numpy(), want[:, None])
         np.testing.assert_array_equal(
             np.asarray(j_engines.PackedBloomIndex(
                 cfg=back.meta.cfgs[0], words=back.words[0]).msmt(
@@ -412,12 +413,152 @@ def test_service_over_flat_filter_matches_reference(flat, rng, theta,
                                     backend=backend))
     assert tsvc.n_files == jsvc.n_files == 1
     got, want = tsvc.search(queries), jsvc.search(queries)
-    for a, b in zip(got, want):
-        assert bool(a.matches) == bool(np.asarray(b.matches))
+    for a, b in zip(got, want):       # the port's: one file's (1,) row
+        assert a.matches.shape == (1,)
+        assert a.matches[0] == bool(np.asarray(b.matches))
         assert (a.file_ids, a.n_kmers, a.bucket) == \
             (b.file_ids, b.n_kmers, b.bucket)
     assert all(r.file_ids == (0,) for r in got[:5])
     assert got[-1].file_ids == ()
+
+
+@pytest.fixture(scope="module")
+def flat_archive(tmp_path_factory):
+    """Six seeded genomes in one flat filter, built by both packages, and
+    the port's two-shard set of the same build."""
+    jc, tc = _cfgs(t=16, L=1 << 11, eta=4, m=1 << 20)
+    items = [(i, genome.synthesize_genome(1500 + 400 * i, seed=30 + i))
+             for i in range(6)]
+    windows = np.concatenate([genome.window_reads(g, 230, 31)
+                              for _, g in items])
+    jeng = j_engines.PackedBloomIndex.build(jc, "idl").insert_batch(
+        jnp.asarray(windows))
+    set_dir = str(tmp_path_factory.mktemp("flat") / "set")
+    ingest.build_sharded_archive(
+        engines.PackedBloomIndex.build(tc, "idl", device="cpu"), items,
+        n_shards=2, out_dir=set_dir, read_len=230, chunk_reads=16)
+    teng = ingest.build_archive(
+        engines.PackedBloomIndex.build(tc, "idl", device="cpu"), items,
+        read_len=230, chunk_reads=16)
+    np.testing.assert_array_equal(_u32(teng.words), np.asarray(jeng.words))
+    rng = np.random.default_rng(17)
+    queries = [np.asarray(g[s:s + 120]) for _, g in items
+               for s in rng.integers(0, 1300, size=2)]
+    for q in queries[::3]:            # one changed base: some kmers miss
+        q[60] = (q[60] + 1) % 4
+    queries += [rng.integers(0, 4, size=n, dtype=np.uint8) for n in (80, 150)]
+    return jeng, teng, set_dir, queries
+
+
+@pytest.mark.parametrize("theta", [1.0, 0.8])
+@pytest.mark.parametrize("path", ["service", "scatter"])
+def test_flat_filter_answers_as_one_file(flat_archive, path, theta):
+    """The served flat filter answers as an index of one file, where the
+    reference answers a bool a read: each ``matches`` is a (1,) row equal
+    to the reference service's verdict, through the service and through
+    the scatter-gather router over a two-shard set."""
+    from repro_torch.serving.scatter import ScatterConfig, ScatterGatherRouter
+
+    jeng, teng, set_dir, queries = flat_archive
+    want = j_service.GeneSearchService(
+        jeng, j_service.ServiceConfig(theta=theta, max_batch=4)
+    ).search(queries)
+    cfg = service.ServiceConfig(theta=theta, max_batch=4)
+    if path == "service":
+        got = service.GeneSearchService(teng, cfg).search(queries)
+    else:
+        with ScatterGatherRouter(set_dir, ScatterConfig(
+                service=cfg, device="cpu")) as router:
+            got = [f.result(timeout=120)
+                   for f in [router.submit(q) for q in queries]]
+    verdicts = [bool(np.asarray(b.matches)) for b in want]
+    assert any(verdicts) and not all(verdicts)
+    for a, b, v in zip(got, want, verdicts):
+        assert a.matches.shape == (1,) and a.matches.dtype == bool
+        assert a.matches[0] == v
+        assert a.file_ids == b.file_ids == ((0,) if v else ())
+        assert a.n_kmers == b.n_kmers
+
+
+def test_bit_probes_counted_by_path(flat):
+    """Each served flat-filter batch counts one probe in
+    ``index.bit_probes``: ``{path=plain}`` on a CPU filter (the kernel's
+    plain version), never ``{path=kernel}``."""
+    from repro_torch.obs import metrics as t_metrics
+
+    g, _, teng = flat
+    reads = genome.extract_reads(g, 120, 10, seed=4)
+
+    def counted():
+        snap = t_metrics.DEFAULT.snapshot()
+        return {p: t_metrics.counter_total(snap, "index.bit_probes",
+                                           {"path": p})
+                for p in ("kernel", "plain")}
+
+    before = counted()
+    svc = service.GeneSearchService(teng, service.ServiceConfig(
+        theta=1.0, max_batch=4, backend="idl_probe"))
+    assert all(r.matches.all() for r in svc.search(list(reads)))
+    after = counted()
+    assert after["plain"] - before["plain"] == len(svc.batch_stats) == 3
+    assert after["kernel"] == before["kernel"]
+
+
+def test_plans_at_bit_offsets_past_2_31():
+    """The flat filter's query and "bits" insert plans at m = 2**35 (4 GiB
+    of words, never allocated): real IDL locations of a batch past 2**32
+    and synthetic ones at 2**31, 2**32 and near 2**35 give the reference
+    planners' run counts, run lengths and bounds, and the run plans' lanes
+    go back to the same 64-bit positions."""
+    m = 1 << 35
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 13, eta=4, m=m)
+    reads = genome.extract_reads(genome.synthesize_genome(4000, seed=8),
+                                 230, 6, seed=2)
+    locs = query.batch_locations(torch.as_tensor(reads), cfg=cfg,
+                                 scheme="idl", lane32=False)
+    part = locs // (m // 4)           # repetition j in its own part
+    assert torch.equal(part, torch.arange(4)[None, :, None].expand_as(part))
+    qplan = query.plan_query(cfg, "idl", reads.shape, (m // 32, 1),
+                             bit_probe=True, device="cpu")
+    cplan = qplan.compact_plan(torch.as_tensor(reads))
+    rplan, _ = qplan.plan_runs(torch.as_tensor(reads))
+    assert (cplan.n_runs, cplan.n_probes) == (rplan.n_runs, rplan.n_probes)
+    assert (cplan.min_row, cplan.max_row) == (int(locs.min()),
+                                              int(locs.max()))
+    assert np.array_equal(cplan.run_lengths(), rplan.run_lengths)
+    # the reference's run plan is of rows: words of a bit probe
+    assert torch.equal(probe_ops.probe_order(rplan, m // cfg.L, "cpu"),
+                       (locs >> 5).reshape(-1, locs.shape[-1]))
+    iplan = ingest.plan_insert(cfg, "idl", reads.shape, (m // 32, 1),
+                               kind="bits", device="cpu")
+    assert torch.equal(iplan.flat_positions(torch.as_tensor(reads)),
+                       locs.reshape(-1))
+    streams = [locs.reshape(-1)]
+    rng = np.random.default_rng(35)
+    for top in (1 << 31, 1 << 32, m):  # synthetic positions at each edge
+        near = top - 1 - rng.integers(0, 3 * cfg.L, size=2000)
+        near[:50] = top - 1 - np.arange(50)          # one long run
+        streams.append(torch.as_tensor(near))
+    for flat in streams:
+        c_ins = ins_ops.compact_insert_plan(flat, iplan.block_bits,
+                                            iplan.inserts_per_run)
+        r_ins = ins_ops.plan_insert_runs(flat.numpy(), iplan.block_bits,
+                                         iplan.inserts_per_run)
+        assert (c_ins.n_locs, c_ins.n_runs, c_ins.n_tiles) == \
+            (r_ins.n_locs, r_ins.n_runs, r_ins.n_tiles)
+        assert c_ins.max_position == int(flat.max())
+        assert np.array_equal(c_ins.run_lengths(), r_ins.run_lengths)
+        assert torch.equal(ins_kernel.lane_positions(
+            torch.as_tensor(r_ins.block_ids[:r_ins.n_runs]),
+            torch.as_tensor(r_ins.offsets[:r_ins.n_runs]), r_ins.block_bits),
+            c_ins.positions)
+        rows = flat.reshape(4, -1)
+        c_q = probe_ops.compact_probe_plan(rows, cfg.L)
+        r_q = probe_ops.plan_probe_runs(rows.numpy(), cfg.L)
+        assert (c_q.n_runs, c_q.min_row, c_q.max_row) == \
+            (r_q.n_runs, int(rows.min()), int(rows.max()))
+        assert torch.equal(probe_ops.probe_order(r_q, m // cfg.L, "cpu"),
+                           rows)
 
 
 def test_end_to_end_gene_search_with_kernel_path():

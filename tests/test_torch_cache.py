@@ -554,4 +554,4 @@ def test_idl_bbf_narrow_window_is_refused():
     jwide = jwide.insert_batch(jnp.asarray(read))
     np.testing.assert_array_equal(eng.words.numpy().view(np.uint32),
                                   np.asarray(jwide.words))
-    assert eng.msmt(read).tolist() == [True]
+    assert eng.msmt(read).tolist() == [[True]]     # one file's column

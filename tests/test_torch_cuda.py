@@ -623,6 +623,54 @@ def test_probe_planned_bits_kernel_vs_plain(cuda, m, L, c):
     assert torch.equal(bits == 1, direct)
 
 
+def test_flat_filter_of_2_35_bits_served(cuda):
+    """A flat IDL filter of m = 2**35 bits (4 GiB of words), built by the
+    archive builder and served by the service on the card: the location
+    kernel's bits past 2**32 equal the plain version's, the words hold
+    exactly the genome's kmer bits, each served batch is one
+    ``probe_planned_bits`` launch counted in ``index.bit_probes{path=
+    kernel}``, and the answers, one file's (1,) rows, equal
+    ``probe_bits_and_ref`` over the plain locations."""
+    from repro_torch.data import genome
+    from repro_torch.index import ingest
+    from repro_torch.kernels.idl_locations import ref as loc_ref
+    from repro_torch.obs import metrics as t_metrics
+    from repro_torch.serving import service
+
+    m = 1 << 35
+    cfg = idl.IDLConfig(k=31, t=16, L=1 << 13, eta=4, m=m)
+    g = genome.synthesize_genome(50000, seed=35)
+    plain = loc_ref.idl_locations64_ref(cfg, torch.as_tensor(g))
+    assert int(plain.max()) >= 1 << 34
+    got = loc_ops.locations(cfg, torch.as_tensor(g, device=cuda), "idl",
+                            lane32=False)
+    assert torch.equal(got.cpu(), plain)
+    eng = ingest.build_archive(
+        engines.PackedBloomIndex.build(cfg, "idl", device=cuda), [(0, g)],
+        read_len=230, chunk_reads=64)
+    assert int(engines.popcount32(eng.words).sum()) == \
+        int(torch.unique(plain).numel())
+    reads = genome.extract_reads(g, 230, 256, seed=1)
+    reads[128:] = genome.poison_queries(reads[128:], seed=2)
+    locs = loc_ref.idl_locations64_ref(cfg, torch.as_tensor(reads))
+    want = probe_ref.probe_bits_and_ref(eng.words, locs.to(cuda)).bool()
+    want = want.all(dim=1).cpu().numpy()
+
+    def kernel_probes():
+        return t_metrics.counter_total(t_metrics.DEFAULT.snapshot(),
+                                       "index.bit_probes", {"path": "kernel"})
+
+    before, launches = kernel_probes(), probe_kernel.bits_launches
+    svc = service.GeneSearchService(eng, service.ServiceConfig(
+        theta=1.0, max_batch=128, backend="idl_probe"))
+    results = svc.search(reads)
+    assert kernel_probes() - before == probe_kernel.bits_launches - \
+        launches == len(svc.batch_stats) == 2
+    rows = np.stack([r.matches for r in results])
+    assert rows.shape == (256, 1) and np.array_equal(rows[:, 0], want)
+    assert want[:128].all() and not want[128:].all()
+
+
 @pytest.mark.parametrize("w", [1, 2, 32])
 @pytest.mark.parametrize("eta", [1, 3, 4])
 def test_probe_planned_bits_widths(cuda, w, eta):

@@ -562,8 +562,8 @@ def test_uncached_step_is_the_engines_coverage_batch(built, rambo_built,
     assert any(np.any(w) for w in want) and not all(np.all(w) for w in want)
     for res, w in zip(got, want):
         np.testing.assert_array_equal(res.matches, w)
-        assert res.matches.shape == w.shape == (
-            () if kind == "bloom" else (eng.n_files,))
+        assert res.matches.shape == w.shape == (     # bloom: one file
+            1 if kind == "bloom" else eng.n_files,)
         assert res.file_ids == tuple(np.flatnonzero(w).tolist())
     assert not hasattr(service, "_msmt_reduce")
 

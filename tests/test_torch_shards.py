@@ -192,6 +192,8 @@ class TestShardMath:
             np.testing.assert_array_equal(
                 np.asarray(j_shards.sharded_msmt(j_spec, j_states, READS,
                                                  theta=theta)), want)
+            if engine == "bloom":     # the port's: one file's column
+                want = want[:, None]
             for backend in ("torch", "idl_probe"):
                 got = shards.sharded_msmt(spec, states, READS, theta=theta,
                                           backend=backend)
